@@ -1,0 +1,315 @@
+"""Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
+
+Run from the repository root on a machine with a CUDA card:
+
+    python3 chip_smoke.py
+
+Phases, each printing its elapsed seconds:
+
+1. device  - the card's name and power limit (nvidia-smi);
+2. build   - nvcc builds every CUDA source of the port (ptxas registers and
+             shared memory are printed);
+3. kernel  - each kernel against its plain PyTorch version on the card, at
+             the main path's shapes and the other tasks' shapes, with its
+             device time (CUDA graph replays between CUDA events) beside
+             the plain version's and its bound;
+4. train   - the port's CLI entry trains spring_color for 2 epochs at B=100
+             on the tracked dataset, with every kernel's launch count set to
+             0 just before and read just after; losses must be finite and
+             fall, and every decode must have gone through the kernel;
+5. kernels - one JSON line with every kernel's launches, error and times.
+
+The last line is {"ok": true, "device": {...}}. Any failure raises, and the
+script exits non-zero without that line; without a CUDA device it fails at
+once. It writes only under a temporary directory.
+"""
+from __future__ import annotations
+
+import json
+import math
+import os
+import re
+import statistics
+import subprocess
+import tempfile
+import time
+from contextlib import contextmanager
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+DATA_DIR = os.path.join(REPO, "data", "datasets")
+
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and f32 FLOP/s outside
+# the tensor cores.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_FLOP_PER_S = 67e12
+
+# Forward tolerance of a kernel against its plain version: both compute in
+# f32 (TF32 off) and differ only in the order of their sums.
+FWD_ATOL = 2e-5
+# Gradient tolerance: the backward is the plain version's autograd in both.
+GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-5
+
+
+@contextmanager
+def phase(name):
+    t0 = time.perf_counter()
+    print(f"== phase {name}", flush=True)
+    yield
+    print(f"== phase {name}: {time.perf_counter() - t0:.2f} s", flush=True)
+
+
+def time_ms(fn, runs=21, reps=10):
+    """Device time of one call of `fn` (ms): `reps` calls are captured in a
+    CUDA graph, so the host's launch overhead is not timed, and the median
+    over `runs` replays timed with CUDA events is divided by `reps`."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
+
+
+def st_decode_bound(n, img, tmpl, n_objs, ch):
+    """Least time (ms) the card needs for one decode, and what bounds it.
+
+    Bytes: each input read once, the output written once. Operations: the
+    work these inputs need. Each interpolation row has at most two
+    non-zeros, so a warped value is 4 taps (2 ops each) per plane; per
+    pixel that is n_objs*(8*(ch+1) + 1) for the warps and the -5, 4*(o+1)
+    for the softmax (max, subtract, exp, sum) and 2*(o+1)*ch for the
+    composite."""
+    f32 = 4
+    bytes_moved = f32 * (n * 2 * n_objs + n_objs * tmpl * tmpl * (1 + ch)
+                         + img * img * ch + n * img * img * ch)
+    per_pixel = (n_objs * (8 * (ch + 1) + 1) + 4 * (n_objs + 1)
+                 + 2 * (n_objs + 1) * ch)
+    ops = n * img * img * per_pixel
+    t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_F32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def decoder_inputs(n, img, tmpl, n_objs, ch, seed, template_logit=None):
+    import torch
+    from paig_reproduction_tpu_torch.models.decoder import (
+        DecoderAssets,
+        DecoderConfig,
+    )
+    g = torch.Generator().manual_seed(seed)
+    template = torch.randn(n_objs, tmpl, tmpl, generator=g)
+    if template_logit is not None:
+        template.fill_(template_logit)
+    assets = DecoderAssets(
+        template=template,
+        contents=torch.randn(n_objs, tmpl, tmpl, ch, generator=g),
+        background=torch.rand(img, img, ch, generator=g))
+    # Positions over the frame and up to a quarter-frame beyond each edge,
+    # so the zero padding of the warp is exercised.
+    pos = torch.rand(n, 2 * n_objs, generator=g) * 1.5 * img - 0.25 * img
+    cfg = DecoderConfig(img_hw=(img, img), tmpl_size=tmpl, n_objs=n_objs,
+                        conv_ch=ch, log_sig=1.0)
+    return (DecoderAssets(*(x.cuda() for x in assets)), pos.cuda(), cfg)
+
+
+def check_st_decode():
+    """The ST-decoder kernel against its plain version. Returns the JSON
+    fields measured here."""
+    import torch
+    from paig_reproduction_tpu_torch.models.decoder import DecoderAssets
+    from paig_reproduction_tpu_torch.ops.cuda import st_decoder as sd
+
+    max_err = 0.0
+    timings = {}
+    for n, img, tmpl, n_objs, ch in [(1000, 32, 16, 2, 3), (800, 32, 16, 2, 3),
+                                     (37, 36, 18, 3, 3), (19, 64, 32, 2, 1),
+                                     (5, 32, 16, 2, 1)]:
+        assets, pos, cfg = decoder_inputs(n, img, tmpl, n_objs, ch, seed=n)
+        with torch.no_grad():
+            out = sd.st_decode_fused(assets, pos, cfg)
+            torch.cuda.synchronize()
+            ref = sd.st_decode_plain(assets, pos, cfg)
+        err = (out - ref).abs().max().item()
+        print(f"st_decode N={n} img={img} T={tmpl} o={n_objs} ch={ch}: "
+              f"max_abs_err={err:.3e} (tolerance {FWD_ATOL})")
+        if not err <= FWD_ATOL:
+            raise AssertionError(f"st_decode disagrees with its plain "
+                                 f"version: {err} > {FWD_ATOL}")
+        max_err = max(max_err, err)
+        if n in (1000, 800):
+            ms = time_ms(lambda: sd.launch(assets, pos, cfg))
+            plain_ms = time_ms(lambda: sd.st_decode_plain(assets, pos, cfg))
+            bound_ms, bound_by = st_decode_bound(n, img, tmpl, n_objs, ch)
+            timings[n] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                              bound_by=bound_by)
+            print(f"st_decode N={n}: kernel {ms * 1e3:.2f} us, plain "
+                  f"{plain_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us "
+                  f"({bound_by})")
+
+    assets, pos, cfg = decoder_inputs(64, 32, 16, 2, 3, seed=1,
+                                      template_logit=90.0)
+    out = sd.launch(assets, pos, cfg)
+    if not bool(torch.isfinite(out).all()):
+        raise AssertionError("st_decode is not finite at template logit 90")
+    print("st_decode template logit 90: finite")
+
+    assets, pos, cfg = decoder_inputs(1000, 32, 16, 2, 3, seed=2)
+    weight = torch.rand((1000, 32, 32, 3), device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(3))
+    grads = []
+    for fn in (sd.st_decode_fused, sd.st_decode_plain):
+        leaves = [x.clone().requires_grad_(True) for x in (*assets, pos)]
+        out = fn(DecoderAssets(*leaves[:3]), leaves[3], cfg)
+        grads.append(torch.autograd.grad((out * weight).sum(), leaves))
+    for name, g_k, g_p in zip(("template", "contents", "background", "pos"),
+                              *grads):
+        torch.testing.assert_close(g_k, g_p, rtol=GRAD_RTOL, atol=GRAD_ATOL)
+        print(f"st_decode grad {name}: max_abs_diff="
+              f"{(g_k - g_p).abs().max().item():.3e}")
+    return max_err, timings
+
+
+def read_log(path):
+    train, evals = [], []
+    with open(path) as f:
+        for line in f:
+            m = re.search(r"train - iter=(\d+) train_loss=(\S+)", line)
+            if m:
+                train.append(float(m.group(2)))
+            m = re.search(r"(valid|test) - epoch=\d+ (.*)", line)
+            if m:
+                evals.extend(float(kv.split("=")[1])
+                             for kv in m.group(2).split())
+    return train, evals
+
+
+def train(batch_size=100, epochs=2):
+    """Drive the port's CLI entry on spring_color; returns
+    (launch count, the Trainer)."""
+    import torch
+    from paig_reproduction_tpu_torch import cli
+    from paig_reproduction_tpu_torch.ops.cuda import st_decoder as sd
+
+    save_dir = os.path.join(tempfile.mkdtemp(prefix="paig_smoke_"), "run")
+    argv = ["--task=spring_color", "--base_lr=6e-4", "--autoencoder_loss=3.0",
+            "--color", f"--batch_size={batch_size}", f"--epochs={epochs}",
+            "--print_interval=1", f"--data_dir={DATA_DIR}",
+            f"--save_dir={save_dir}", "--device=cuda"]
+    sd.LAUNCHES = 0
+    trainer = cli.main(argv)
+    torch.cuda.synchronize()
+    launches = sd.LAUNCHES
+
+    train_losses, eval_losses = read_log(os.path.join(save_dir, "log.txt"))
+    print(f"train losses: first {train_losses[0]:.4f}, last "
+          f"{train_losses[-1]:.4f} over {len(train_losses)} steps")
+    if not all(math.isfinite(v) for v in train_losses + eval_losses):
+        raise AssertionError("a logged loss is not finite")
+    if not train_losses[-1] < train_losses[0]:
+        raise AssertionError("the last train_loss is not below the first")
+    valid_n = trainer.valid_iterator.num_examples
+    test_n = trainer.test_iterator.num_examples
+    eval_batches = ((1 + epochs) * (valid_n // batch_size)
+                    + test_n // batch_size)
+    needed = 2 * (trainer.step + eval_batches)
+    print(f"st_decode launches: {launches} (train steps {trainer.step}, "
+          f"eval batches {eval_batches}, needed >= {needed})")
+    if launches < needed:
+        raise AssertionError("the main path did not decode through the "
+                             "kernel on every decode")
+    if trainer.step != epochs * (trainer.train_iterator.num_examples
+                                 // batch_size):
+        raise AssertionError(f"unexpected step count {trainer.step}")
+    return launches, trainer
+
+
+def step_ms(trainer, batch_size=100, steps=20):
+    """Median host time of one synchronized train step (ms)."""
+    import numpy as np
+    import torch
+    rs = np.random.RandomState(0)
+    n = trainer.train_iterator.num_examples
+    times = []
+    for i in range(steps + 3):
+        idx = rs.choice(n, batch_size, replace=False)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train_step(idx)
+        torch.cuda.synchronize()
+        if i >= 3:
+            times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device; this script runs only "
+                         "on a GPU")
+    from paig_reproduction_tpu_torch.ops.cuda import build
+    from paig_reproduction_tpu_torch.utils.misc import use_full_f32
+
+    with phase("device"):
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, check=True).stdout.strip()
+        print(smi)
+        kind = torch.cuda.get_device_name(0)
+        print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+              f"device {kind} count {torch.cuda.device_count()}")
+        use_full_f32()
+
+    with phase("build"):
+        for name, (seconds, log) in build.build().items():
+            print(log.strip())
+            print(f"built {name}.cu in {seconds:.2f} s")
+
+    with phase("kernel st_decode"):
+        max_err, timings = check_st_decode()
+
+    with phase("train"):
+        launches, trainer = train()
+        ms = step_ms(trainer)
+        print(f"median train step: {ms:.2f} ms at B=100 on {smi}")
+
+    with phase("kernels"):
+        main_path = timings[1000]
+        print(json.dumps({"kernels": [{
+            "name": "st_decode",
+            "route": "cuda",
+            "source": "paig_reproduction_tpu_torch/csrc/st_decoder.cu",
+            "replaces": "paig_reproduction_tpu/ops/pallas/st_decoder.py:115",
+            "launches": launches,
+            "max_abs_err": max_err,
+            "ms": main_path["ms"],
+            "plain_ms": main_path["plain_ms"],
+            "bound_ms": main_path["bound_ms"],
+            "bound_by": main_path["bound_by"],
+            "library_ms": None,
+        }]}))
+
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

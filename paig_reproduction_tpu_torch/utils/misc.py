@@ -1,0 +1,24 @@
+"""Logging and numerics utilities.
+
+``log_metrics`` writes the same ``<prefix> k=v k=v ...`` lines as
+``paig_reproduction_tpu/utils/misc.py`` so log.txt tooling reads both.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def log_metrics(logger, prefix, metrics):
+    """Emit one ``<prefix> k=v k=v ...`` info line, keys sorted."""
+    body = " ".join(f"{k}={metrics[k]}" for k in sorted(metrics))
+    logger.info(f"{prefix} {body}")
+
+
+def use_full_f32():
+    """Run float32 matmuls and convolutions on the card in full float32.
+
+    cuDNN convolutions default to TF32, which keeps about three decimal
+    digits; the JAX package computes in full f32 (``precision="highest"``
+    in the decoder), and parity with it needs the same here."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
