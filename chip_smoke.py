@@ -10,14 +10,17 @@ Phases, each printing its elapsed seconds:
 2. build   - nvcc builds every CUDA source of the port (ptxas registers and
              shared memory are printed);
 3. kernel  - each kernel against its plain PyTorch version on the card, at
-             the main path's shapes and the other tasks' shapes, with its
-             device time (CUDA graph replays between CUDA events) beside
-             the plain version's and its bound;
+             the main path's shapes, the other tasks' shapes and the edges
+             of its grid, with its device time (CUDA graph replays between
+             CUDA events) beside the plain version's, its bound, its share
+             of the bound and the store-only floor (the same grid writing a
+             constant through the same stores);
 4. train   - the port's CLI entry trains spring_color for 2 epochs at B=100
              on the tracked dataset, with every kernel's launch count set to
              0 just before and read just after; losses must be finite and
              fall, and every decode must have gone through the kernel;
-5. kernels - one JSON line with every kernel's launches, error and times.
+5. kernels - one JSON line with every kernel's launches, error, times,
+             share of its bound and store-only floor.
 
 The last line is {"ok": true, "device": {...}}. Any failure raises, and the
 script exits non-zero without that line; without a CUDA device it fails at
@@ -38,11 +41,6 @@ from contextlib import contextmanager
 REPO = os.path.dirname(os.path.abspath(__file__))
 DATA_DIR = os.path.join(REPO, "data", "datasets")
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and f32 FLOP/s outside
-# the tensor cores.
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_FLOP_PER_S = 67e12
-
 # Forward tolerance of a kernel against its plain version: both compute in
 # f32 (TF32 off) and differ only in the order of their sums.
 FWD_ATOL = 2e-5
@@ -58,75 +56,15 @@ def phase(name):
     print(f"== phase {name}: {time.perf_counter() - t0:.2f} s", flush=True)
 
 
-def time_ms(fn, runs=21, reps=10):
-    """Device time of one call of `fn` (ms): `reps` calls are captured in a
-    CUDA graph, so the host's launch overhead is not timed, and the median
-    over `runs` replays timed with CUDA events is divided by `reps`."""
-    import torch
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end) / reps)
-    return statistics.median(times)
-
-
-def st_decode_bound(n, img, tmpl, n_objs, ch):
-    """Least time (ms) the card needs for one decode, and what bounds it.
-
-    Bytes: each input read once, the output written once. Operations: the
-    work these inputs need. Each interpolation row has at most two
-    non-zeros, so a warped value is 4 taps (2 ops each) per plane; per
-    pixel that is n_objs*(8*(ch+1) + 1) for the warps and the -5, 4*(o+1)
-    for the softmax (max, subtract, exp, sum) and 2*(o+1)*ch for the
-    composite."""
-    f32 = 4
-    bytes_moved = f32 * (n * 2 * n_objs + n_objs * tmpl * tmpl * (1 + ch)
-                         + img * img * ch + n * img * img * ch)
-    per_pixel = (n_objs * (8 * (ch + 1) + 1) + 4 * (n_objs + 1)
-                 + 2 * (n_objs + 1) * ch)
-    ops = n * img * img * per_pixel
-    t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_F32_FLOP_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def decoder_inputs(n, img, tmpl, n_objs, ch, seed, template_logit=None):
-    import torch
-    from paig_reproduction_tpu_torch.models.decoder import (
-        DecoderAssets,
-        DecoderConfig,
-    )
-    g = torch.Generator().manual_seed(seed)
-    template = torch.randn(n_objs, tmpl, tmpl, generator=g)
-    if template_logit is not None:
-        template.fill_(template_logit)
-    assets = DecoderAssets(
-        template=template,
-        contents=torch.randn(n_objs, tmpl, tmpl, ch, generator=g),
-        background=torch.rand(img, img, ch, generator=g))
-    # Positions over the frame and up to a quarter-frame beyond each edge,
-    # so the zero padding of the warp is exercised.
-    pos = torch.rand(n, 2 * n_objs, generator=g) * 1.5 * img - 0.25 * img
-    cfg = DecoderConfig(img_hw=(img, img), tmpl_size=tmpl, n_objs=n_objs,
-                        conv_ch=ch, log_sig=1.0)
-    return (DecoderAssets(*(x.cuda() for x in assets)), pos.cuda(), cfg)
+# (N, img, T, o, ch): the main path's train (N=1000) and eval (N=800)
+# decodes at 32/16/2/3, the other tasks' shapes (64/32/2/3 is the largest
+# block the kernel stages), and the edges of the
+# persistent grid: one frame, an N that the grid does not divide, and the
+# seq-30 test graph's 26 rollout frames x B=100 (several frames a block).
+ST_DECODE_SHAPES = [(1000, 32, 16, 2, 3), (800, 32, 16, 2, 3),
+                    (37, 36, 18, 3, 3), (19, 64, 32, 2, 1), (5, 32, 16, 2, 1),
+                    (3, 64, 32, 2, 3), (1, 32, 16, 2, 3),
+                    (1001, 32, 16, 2, 3), (2600, 32, 16, 2, 3)]
 
 
 def check_st_decode():
@@ -135,12 +73,15 @@ def check_st_decode():
     import torch
     from paig_reproduction_tpu_torch.models.decoder import DecoderAssets
     from paig_reproduction_tpu_torch.ops.cuda import st_decoder as sd
+    from paig_reproduction_tpu_torch.ops.cuda.measure import (
+        decoder_inputs,
+        st_decode_bound,
+        time_ms,
+    )
 
     max_err = 0.0
     timings = {}
-    for n, img, tmpl, n_objs, ch in [(1000, 32, 16, 2, 3), (800, 32, 16, 2, 3),
-                                     (37, 36, 18, 3, 3), (19, 64, 32, 2, 1),
-                                     (5, 32, 16, 2, 1)]:
+    for n, img, tmpl, n_objs, ch in ST_DECODE_SHAPES:
         assets, pos, cfg = decoder_inputs(n, img, tmpl, n_objs, ch, seed=n)
         with torch.no_grad():
             out = sd.st_decode_fused(assets, pos, cfg)
@@ -156,12 +97,19 @@ def check_st_decode():
         if n in (1000, 800):
             ms = time_ms(lambda: sd.launch(assets, pos, cfg))
             plain_ms = time_ms(lambda: sd.st_decode_plain(assets, pos, cfg))
+            # Launch plus the output's bytes: the same grid and bulk stores
+            # writing a constant frame.
+            floor_ms = time_ms(lambda: sd.launch_variant(
+                assets, pos, cfg, "store_only", out=out))
             bound_ms, bound_by = st_decode_bound(n, img, tmpl, n_objs, ch)
             timings[n] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                              bound_by=bound_by)
+                              bound_by=bound_by,
+                              share_of_bound=bound_ms / ms,
+                              store_floor_ms=floor_ms)
             print(f"st_decode N={n}: kernel {ms * 1e3:.2f} us, plain "
                   f"{plain_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us "
-                  f"({bound_by})")
+                  f"({bound_by}), share of bound {bound_ms / ms:.3f}, "
+                  f"store-only floor {floor_ms * 1e3:.2f} us")
 
     assets, pos, cfg = decoder_inputs(64, 32, 16, 2, 3, seed=1,
                                       template_logit=90.0)
@@ -304,6 +252,8 @@ def main():
             "bound_ms": main_path["bound_ms"],
             "bound_by": main_path["bound_by"],
             "library_ms": None,
+            "share_of_bound": main_path["share_of_bound"],
+            "store_floor_ms": main_path["store_floor_ms"],
         }]}))
 
     print(json.dumps({"ok": True, "device": {

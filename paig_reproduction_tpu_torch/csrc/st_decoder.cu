@@ -1,154 +1,484 @@
 // Fused spatial-transformer decoder forward for Hopper (sm_90a).
 //
-// Replaces the TPU kernel paig_reproduction_tpu/ops/pallas/st_decoder.py
-// (_decode_kernel, launched from st_decode_pallas). Per frame and object it
-// places the object's template and contents at the object's (x, y) with an
+// Replaces the TPU kernel paig_reproduction_tpu/ops/pallas/st_decoder.py:115
+// (st_decode_pallas, body _decode_kernel). Per frame and object it places
+// the object's template and contents at the object's (x, y) with an
 // axis-aligned bilinear warp (translation t = (img/2 - p)/T * sigma, scale
 // sigma, align_corners=False, zero padding), shifts the warped mask logit
 // back by -5, takes a softmax over the objects plus a constant background
 // logit of 1 and composites the contents over the background. The output is
 // written channels-last, [N, img, img, ch].
 //
-// Bound on an H100 SXM (3.35 TB/s, 67 TFLOP/s f32 outside the tensor cores):
-// the inputs are a few KB, the output is N*img*img*ch*4 bytes (12.3 MB at
-// the main path's N=1000, img=32, ch=3), so writing the output takes about
-// 3.7 us. Each row of an interpolation matrix has at most two non-zeros,
-// so a pixel needs 4 taps per plane: about 96 operations a pixel for two
-// objects and three channels, 0.1 GFLOP at N=1000, about 1.5 us. The kernel
-// is bound by the bytes it writes.
+// What bounds it. By the roofline it is bound by the bytes it writes: the
+// inputs are a few KB, the output N*img*img*ch*4 bytes (12.3 MB at the main
+// path's N=1000, 32/16/2/3), 3.7 us at the H100's 3.35 TB/s, against 1.5 us
+// for the ~96 f32 operations a pixel needs at 67 TFLOP/s. On the card it is
+// bound by instruction issue: a pixel costs about 110 instructions (two
+// taps and the walk below per object, three exact expf, one IEEE
+// division, the composite, three stores), some 3.9 M warp instructions at
+// N=1000. Measured on an H100 80GB HBM3 at 700 W with the variants below:
+// the launch alone takes 1.8 us, the prologue 1.8 us more; the stores are
+// hidden (no_store is as slow as the kernel); exact expf and division cost
+// 0.3 us over the intrinsics (fast_math).
 //
-// Design: one block per frame. The block first stages the object planes
-// (template + 5 and sigmoid(contents), [o][ch+1][T][T]) in shared memory,
-// since every frame reads them; each thread then computes whole output
-// pixels, reading at most 2x2 taps per plane, and keeps an online
-// max/sum softmax over the background and the objects in registers. All
-// arithmetic is f32; no tensor cores.
+// No tensor cores, on purpose: the Pallas kernel's two dense [img, T]
+// matmuls per plane do 4x the needed arithmetic (each interpolation row has
+// two non-zeros), and the work is issue-bound scalar arithmetic whose
+// largest part, the softmax, a matrix unit cannot do.
+//
+// Design:
+// - One block of 32 warps per SM. The prologue stages the object planes
+//   (template + 5 and sigmoid(contents), one float4 per texel, so a tap is
+//   one 16-byte load for all planes) and the background in shared memory,
+//   once per SM, with one round of asynchronous copies.
+// - The unit of work is a slab of 8 output rows of one frame, decoded by
+//   one warp; slabs go to the blocks in turn, so every SM gets its share.
+//   Each lane owns a column. Per slab a warp builds a table of the y rows
+//   (w0, w1, j0) of every object's interpolation matrix, and each lane its
+//   x rows, in registers: pixels do no division.
+// - The walk. Warping is separable, val = Wy (P Wx^T). Each lane keeps, per
+//   object, the last two template rows interpolated at its column's x taps
+//   in registers; moving down one output row moves the source half a
+//   template row, so a new row is interpolated about every second output
+//   row. The rows a step needs are the same for every lane of the warp, so
+//   the walk's branches never diverge. Per pixel and object that is one
+//   table load and 8 multiply-adds, and 2 plane loads and 8 more every
+//   second row, instead of 4 plane loads and 24 operations.
+// - Stores go straight from registers, three floats a pixel. No block
+//   barrier follows the prologue, so one warp's stores overlap the others'
+//   arithmetic; staging slabs in shared memory for a bulk copy (TMA) or for
+//   16-byte stores measured slower (bulk_store, vector_store), as the tile
+//   costs shared-memory bandwidth and a warp barrier per slab.
+//
+// All arithmetic is f32 with expf and IEEE division. The source coordinates
+// take the plain decoder's operations in its order
+// (models/decoder.py::_warp_weights); the two contractions run x first,
+// then y, so the result differs from the plain one only in rounding, well
+// within the 2e-5 tolerance.
 #include <cuda_runtime.h>
+#include <cstdint>
 
 namespace {
 
-constexpr int kMaxCh = 3;
-constexpr int kThreads = 256;
+// One block of 32 warps an SM: the prologue (2048 sigmoids at 32/16/2/3)
+// is paid once per SM, and 64 registers a thread fill the register file.
+constexpr int kWarps = 32;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kSlabRows = 8;  // the kernel's slab height
 
-// Source coordinate of output pixel i along one axis, in template pixels:
-// the same operations, in the same order, as the plain PyTorch decoder
-// (models/decoder.py::_warp_weights).
-__device__ __forceinline__ float source_coord(int i, float p, int img,
+// How a warp's pixels reach device memory.
+enum Store : int {
+  kDirect = 0,  // each lane stores its pixel's channels from registers
+  kBulk = 1,    // a per-warp tile in shared memory, one bulk copy (TMA)
+  kVector = 2,  // a per-warp tile, 16-byte stores by every lane
+};
+
+// What the warp computes.
+enum Mode : int {
+  kFull = 0,        // the decoder
+  kStoreOnly = 1,   // a constant through the same stores: the floor
+  kInlineTaps = 2,  // y taps computed per pixel, no per-warp table
+  kNoWalk = 3,      // both x-interpolated rows recomputed every row
+  kNoStore = 4,     // the decoder, storing only a pixel that is negative
+  kFastMath = 5,    // __expf and approximate division in the softmax
+  kPrologueOnly = 6,  // the launch and the prologue alone
+  kLaunchOnly = 7,    // the launch alone: every block returns at once
+};
+
+struct Params {
+  const float* pos;         // [N, 2*o]
+  const float* tmpl_raw;    // [o, T, T]
+  const float* cont_raw;    // [o, T, T, ch]
+  const float* background;  // [img, img, ch]
+  float* out;               // [N, img, img, ch]
+  int n, img, tmpl;
+  int rows;                 // rows of a slab, the unit of one warp
+  float sigma;
+};
+
+// Rows of a slab, the unit of one warp: at most one y-table row per lane
+// and object; `rows` if the caller asks for a height.
+int slab_rows(int img, int n_objs, int rows) {
+  const int most = 32 / n_objs;
+  if (rows <= 0) rows = kSlabRows;
+  if (rows > most) rows = most;
+  return img < rows ? img : rows;
+}
+
+// The background's floats, rounded up so the float4 tables after it stay
+// aligned.
+__host__ __device__ inline int bg_floats(int img, int ch) {
+  return (img * img * ch + 3) / 4 * 4;
+}
+
+// Dynamic shared memory: the planes as one float4 per texel, the
+// background, each warp's 32-row y table, the raw planes as the prologue
+// copies them, base_coord of every row and, for the tiled stores, each
+// warp's slab tile.
+size_t shared_bytes(int img, int tmpl, int n_objs, int ch, int store,
+                    int rows) {
+  size_t floats = 4 * (size_t)n_objs * tmpl * tmpl + bg_floats(img, ch) +
+                  (size_t)kWarps * 32 * 4 +
+                  (size_t)n_objs * tmpl * tmpl * (1 + ch) + img;
+  if (store != kDirect) floats += (size_t)kWarps * rows * img * ch;
+  return sizeof(float) * floats;
+}
+
+// The source coordinate of output pixel i along one axis, in template
+// pixels, takes the same operations, in the same order, as the plain
+// PyTorch decoder (models/decoder.py::_warp_weights): base(i) below, then
+// source_coord. base depends on the pixel only, so it is computed once.
+__device__ __forceinline__ float base_coord(int i, int img) {
+  return (2.0f * (float)i + 1.0f) / (float)img - 1.0f;
+}
+
+__device__ __forceinline__ float source_coord(float base, float p, int img,
                                               int tmpl, float sigma) {
   float t = ((float)img / 2.0f - p) / (float)tmpl * sigma;
-  float base = (2.0f * (float)i + 1.0f) / (float)img - 1.0f;
   float grid = sigma * base + t;
   return ((grid + 1.0f) * (float)tmpl - 1.0f) / 2.0f;
 }
 
-// The two taps of one interpolation-matrix row: indices clamped into the
-// template, weights max(0, 1 - |src - j|), zero for a tap outside it.
-__device__ __forceinline__ void taps(float src, int tmpl, int* j, float* w) {
-  int j0 = (int)floorf(src);
+// One row of an interpolation matrix: weights max(0, 1 - |src - j|) of
+// taps j0 = floor(src) and j0 + 1 in x and y, zero for a tap outside the
+// template, and j0 (int bits) in z.
+__device__ __forceinline__ float4 tap_row(float base, float p, int img,
+                                          int tmpl, float sigma) {
+  const float src = source_coord(base, p, img, tmpl, sigma);
+  const int j0 = (int)floorf(src);
+  float w[2];
 #pragma unroll
   for (int k = 0; k < 2; ++k) {
-    int jk = j0 + k;
-    bool inside = jk >= 0 && jk < tmpl;
-    w[k] = inside ? fmaxf(0.0f, 1.0f - fabsf(src - (float)jk)) : 0.0f;
-    j[k] = inside ? jk : 0;
+    const int jk = j0 + k;
+    w[k] = jk >= 0 && jk < tmpl ? fmaxf(0.0f, 1.0f - fabsf(src - (float)jk))
+                                : 0.0f;
   }
+  return make_float4(w[0], w[1], __int_as_float(j0), 0.0f);
 }
 
-__global__ void __launch_bounds__(kThreads)
-st_decode_forward_kernel(const float* __restrict__ pos,        // [N, 2*o]
-                         const float* __restrict__ tmpl_raw,   // [o, T, T]
-                         const float* __restrict__ cont_raw,   // [o, T, T, ch]
-                         const float* __restrict__ background, // [img, img, ch]
-                         float* __restrict__ out,              // [N, img, img, ch]
-                         int img, int tmpl, int n_objs, int ch, float sigma) {
-  extern __shared__ float planes[];  // [o][ch + 1][T][T]
+__device__ __forceinline__ float4 axpby(float a, float4 x, float b,
+                                        float4 y) {
+  return make_float4(a * x.x + b * y.x, a * x.y + b * y.y, a * x.z + b * y.z,
+                     a * x.w + b * y.w);
+}
+
+__device__ __forceinline__ float sigmoid(float x) {
+  return 1.0f / (1.0f + expf(-x));
+}
+
+// 4-byte asynchronous copy from global to shared memory (cp.async).
+__device__ __forceinline__ void copy_async(float* dst, const float* src) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;"
+               :: "r"(d), "l"(src) : "memory");
+}
+
+template <int kObjs, int kCh, int kStore, int kMode>
+__global__ void __launch_bounds__(kThreads, 1)
+st_decode_kernel(Params p) {
+  if constexpr (kMode == kLaunchOnly) return;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int img = p.img, tmpl = p.tmpl, rows = p.rows;
   const int plane = tmpl * tmpl;
-  const int n_planes = ch + 1;
+  const int frame = img * img * kCh;
+  const int slabs = (img + rows - 1) / rows;
 
-  for (int i = threadIdx.x; i < n_objs * plane; i += blockDim.x) {
-    const int o = i / plane;
-    const int r = i - o * plane;
-    float* dst = planes + o * n_planes * plane + r;
-    dst[0] = tmpl_raw[i] + 5.0f;
-    for (int c = 0; c < ch; ++c)
-      dst[(1 + c) * plane] = 1.0f / (1.0f + expf(-cont_raw[i * ch + c]));
+  float4* planes = reinterpret_cast<float4*>(smem);  // [o][T][T]
+  float* bg = reinterpret_cast<float*>(planes + kObjs * plane);
+  float4* ytabs = reinterpret_cast<float4*>(bg + bg_floats(img, kCh));
+  float* tiles = reinterpret_cast<float*>(ytabs + kWarps * 32);
+  float* raw = tiles + (kStore != kDirect ? kWarps * rows * img * kCh : 0);
+  float* bases = raw + kObjs * plane * (1 + kCh);  // base_coord of each row
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  float4* ytab = ytabs + warp * 32;     // [o][rows]
+  float* tile = tiles + warp * rows * img * kCh;
+
+  // Each warp decodes slabs of `rows` output rows: unit u is frame
+  // u / slabs, rows (u % slabs) * rows onwards, and goes to block
+  // u % gridDim.x, so every SM gets its share. A unit's positions are
+  // loaded one unit ahead (the first while the prologue's copies fly):
+  // the x position of each object, and the y position of this lane's
+  // y-table row.
+  const int units = p.n * slabs;
+  const int stride = gridDim.x * kWarps;
+  float pos_x[kObjs], pos_y = 0.0f;
+  auto load_pos = [&](int u) {
+    if (u >= units) return;
+    const float* fp = p.pos + (size_t)(u / slabs) * 2 * kObjs;
+#pragma unroll
+    for (int o = 0; o < kObjs; ++o) pos_x[o] = fp[2 * o];
+    if (lane < kObjs * rows) pos_y = fp[2 * (lane / rows) + 1];
+  };
+  int u = warp * gridDim.x + blockIdx.x;
+  load_pos(u);
+
+  // Prologue, once per block: the raw planes and the background in one
+  // round of asynchronous copies, all in flight together, then
+  // template + 5 and sigmoid(contents) as float4 planes.
+  if constexpr (kMode != kStoreOnly) {
+    const int n_tmpl = kObjs * plane;
+    for (int i = tid; i < n_tmpl * (1 + kCh); i += kThreads)
+      copy_async(raw + i, i < n_tmpl ? p.tmpl_raw + i
+                                     : p.cont_raw + (i - n_tmpl));
+    for (int i = tid; i < frame; i += kThreads)
+      copy_async(bg + i, p.background + i);
+    for (int i = tid; i < img; i += kThreads) bases[i] = base_coord(i, img);
+    asm volatile("cp.async.wait_all;" ::: "memory");
+    __syncthreads();
+    for (int i = tid; i < n_tmpl; i += kThreads) {
+      const float* c = raw + n_tmpl + i * kCh;
+      planes[i] = make_float4(raw[i] + 5.0f, sigmoid(c[0]),
+                              kCh > 1 ? sigmoid(c[1]) : 0.0f,
+                              kCh > 2 ? sigmoid(c[2]) : 0.0f);
+    }
+    __syncthreads();
   }
-  __syncthreads();
+  if constexpr (kMode == kPrologueOnly) return;
 
-  const int frame = blockIdx.x;
-  const float* frame_pos = pos + (size_t)frame * 2 * n_objs;
-  float* frame_out = out + (size_t)frame * img * img * ch;
-
-  for (int px = threadIdx.x; px < img * img; px += blockDim.x) {
-    const int h = px / img;
-    const int w = px - h * img;
-
-    // Online softmax over [background, objects]: running max m, running
-    // sum s of exp(logit - m), running sum acc of exp(logit - m) * colour.
-    float m = 1.0f;
-    float s = 1.0f;
-    float acc[kMaxCh];
+  // Each lane walks down its columns; consecutive rows mostly reuse the
+  // same two template rows, so each object keeps its last two
+  // x-interpolated template rows (P[j] Wx[w]^T, j = j0 and j0 + 1) in
+  // registers. j0 is the same for every lane of the warp, so the walk's
+  // branches do not diverge.
+  for (; u < units; u += stride) {
+    const int f = u / slabs;
+    const int h0 = (u - f * slabs) * rows;
+    const int h1 = min(img, h0 + rows);
+    const float* fp = p.pos + (size_t)f * 2 * kObjs;
+    float* out = p.out + (size_t)f * frame;
+    float px[kObjs];
 #pragma unroll
-    for (int c = 0; c < kMaxCh; ++c)
-      acc[c] = c < ch ? background[px * ch + c] : 0.0f;
+    for (int o = 0; o < kObjs; ++o) px[o] = pos_x[o];
+    const float py = pos_y;
+    load_pos(u + stride);
 
-    for (int o = 0; o < n_objs; ++o) {
-      int jx[2], jy[2];
-      float wx[2], wy[2];
-      taps(source_coord(w, frame_pos[2 * o], img, tmpl, sigma), tmpl, jx, wx);
-      taps(source_coord(h, frame_pos[2 * o + 1], img, tmpl, sigma), tmpl, jy,
-           wy);
-      const float* obj = planes + o * n_planes * plane;
-
-      float val[kMaxCh + 1];
-#pragma unroll
-      for (int c = 0; c <= kMaxCh; ++c) {
-        if (c > ch) break;
-        const float* pl = obj + c * plane;
-        // Wy * P first, then * Wx^T, as the plain decoder contracts.
-        float r0 = wy[0] * pl[jy[0] * tmpl + jx[0]] +
-                   wy[1] * pl[jy[1] * tmpl + jx[0]];
-        float r1 = wy[0] * pl[jy[0] * tmpl + jx[1]] +
-                   wy[1] * pl[jy[1] * tmpl + jx[1]];
-        val[c] = r0 * wx[0] + r1 * wx[1];
+    if constexpr (kMode != kInlineTaps && kMode != kStoreOnly) {
+      __syncwarp();
+      if (lane < kObjs * rows) {
+        const int h = h0 + lane % rows;
+        if (h < img) ytab[lane] = tap_row(bases[h], py, img, tmpl, p.sigma);
       }
+      __syncwarp();
+    }
+    if constexpr (kStore != kDirect) {
+      // The previous slab's store has read this warp's tile.
+      if constexpr (kStore == kBulk)
+        if (lane == 0)
+          asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+      __syncwarp();
+    }
 
-      const float logit = val[0] - 5.0f;
-      if (logit > m) {
-        const float scale = expf(m - logit);
-        s = s * scale + 1.0f;
+    for (int w = lane; w < img; w += 32) {
+      float4 tx[kObjs], c0[kObjs], c1[kObjs];
+      int jw[kObjs];
+      if constexpr (kMode != kStoreOnly) {
 #pragma unroll
-        for (int c = 0; c < kMaxCh; ++c)
-          if (c < ch) acc[c] = acc[c] * scale + val[1 + c];
-        m = logit;
-      } else {
-        const float e = expf(logit - m);
-        s += e;
+        for (int o = 0; o < kObjs; ++o) {
+          tx[o] = tap_row(bases[w], px[o], img, tmpl, p.sigma);
+          jw[o] = -0x40000000;
+        }
+      }
+      const float* bg_px = bg + (h0 * img + w) * kCh;
+      float* dst = kStore == kDirect ? out + (h0 * img + w) * kCh
+                                     : tile + w * kCh;
+      for (int h = h0; h < h1; ++h, bg_px += img * kCh, dst += img * kCh) {
+        float res[kCh];
+        if constexpr (kMode == kStoreOnly) {
 #pragma unroll
-        for (int c = 0; c < kMaxCh; ++c)
-          if (c < ch) acc[c] += e * val[1 + c];
+          for (int c = 0; c < kCh; ++c) res[c] = 0.5f;
+        } else {
+          float4 val[kObjs];
+          float logit[kObjs];
+          float m = 1.0f;  // the background's logit
+#pragma unroll
+          for (int o = 0; o < kObjs; ++o) {
+            const float4 y = kMode == kInlineTaps
+                                 ? tap_row(base_coord(h, img), fp[2 * o + 1],
+                                           img, tmpl, p.sigma)
+                                 : ytab[o * rows + h - h0];
+            const int j0 = __float_as_int(y.z);
+            // x-interpolated template row j; zero outside the template.
+            const float4* pl = planes + o * plane;
+            const int jx0 = __float_as_int(tx[o].z);
+            const int x0 = jx0 >= 0 && jx0 < tmpl ? jx0 : 0;
+            const int x1 = jx0 + 1 >= 0 && jx0 + 1 < tmpl ? jx0 + 1 : 0;
+            auto xrow = [&](int j) {
+              return j >= 0 && j < tmpl
+                         ? axpby(tx[o].x, pl[j * tmpl + x0], tx[o].y,
+                                 pl[j * tmpl + x1])
+                         : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+            };
+            if (kMode == kNoWalk || j0 != jw[o]) {
+              c0[o] = kMode != kNoWalk && j0 == jw[o] + 1 ? c1[o] : xrow(j0);
+              c1[o] = xrow(j0 + 1);
+              jw[o] = j0;
+            }
+            // Wx first, then Wy: both weights of a tap outside the
+            // template are zero, as are its rows.
+            val[o] = axpby(y.x, c0[o], y.y, c1[o]);
+            logit[o] = val[o].x - 5.0f;
+            m = fmaxf(m, logit[o]);
+          }
+          // kFastMath swaps in the approximate intrinsics, only to time
+          // what the exact expf and division cost.
+          auto exp_ = [](float x) {
+            return kMode == kFastMath ? __expf(x) : expf(x);
+          };
+          const float e_bg = exp_(1.0f - m);
+          float s = e_bg;
+#pragma unroll
+          for (int c = 0; c < kCh; ++c) res[c] = e_bg * bg_px[c];
+#pragma unroll
+          for (int o = 0; o < kObjs; ++o) {
+            const float e = exp_(logit[o] - m);
+            s += e;
+            res[0] += e * val[o].y;
+            if constexpr (kCh > 1) res[1] += e * val[o].z;
+            if constexpr (kCh > 2) res[2] += e * val[o].w;
+          }
+          const float inv = kMode == kFastMath ? __fdividef(1.0f, s)
+                                               : 1.0f / s;
+#pragma unroll
+          for (int c = 0; c < kCh; ++c) res[c] *= inv;
+        }
+        // A composite of sigmoids and a background in [0, 1] is never
+        // negative: kNoStore times the arithmetic without the stores.
+        if (kMode != kNoStore || res[0] < 0.0f) {
+#pragma unroll
+          for (int c = 0; c < kCh; ++c) dst[c] = res[c];
+        }
       }
     }
 
-    const float inv = 1.0f / s;
-#pragma unroll
-    for (int c = 0; c < kMaxCh; ++c)
-      if (c < ch) frame_out[px * ch + c] = acc[c] * inv;
+    if constexpr (kStore != kDirect) {
+      // The slab is contiguous in the output: rows h0..h1-1 of frame f.
+      const int floats = (h1 - h0) * img * kCh;
+      float* dst = out + h0 * img * kCh;
+      if constexpr (kStore == kBulk) {
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        __syncwarp();
+        if (lane == 0) {
+          const uint32_t src =
+              static_cast<uint32_t>(__cvta_generic_to_shared(tile));
+          asm volatile(
+              "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
+              :: "l"(dst), "r"(src), "r"(floats * 4) : "memory");
+          asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+        }
+      } else {
+        __syncwarp();
+        for (int i = lane; i < floats / 4; i += 32)
+          reinterpret_cast<float4*>(dst)[i] =
+              reinterpret_cast<const float4*>(tile)[i];
+      }
+    }
+  }
+  if constexpr (kStore == kBulk)
+    if (lane == 0) asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+
+template <int kObjs, int kCh, int kStore, int kMode>
+int launch(Params p, cudaStream_t stream, int rows = 0) {
+  auto kernel = st_decode_kernel<kObjs, kCh, kStore, kMode>;
+  p.rows = slab_rows(p.img, kObjs, rows);
+  const size_t smem =
+      shared_bytes(p.img, p.tmpl, kObjs, kCh, kStore, p.rows);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  int device, sms, per_sm;
+  if (err != cudaSuccess ||
+      (err = cudaGetDevice(&device)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    device)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kernel, kThreads, smem)) != cudaSuccess)
+    return (int)err;
+  // Every block that fits on the card at once, each warp walking its
+  // share of the slabs.
+  const long units = (long)p.n * ((p.img + p.rows - 1) / p.rows);
+  const long slots = (long)(per_sm > 0 ? per_sm : 1) * sms;
+  const long grid = units < slots ? units : slots;
+  kernel<<<(int)grid, kThreads, smem, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+template <int kObjs>
+int launch_kernel(const Params& p, int ch, cudaStream_t stream) {
+  switch (ch) {
+    case 1: return launch<kObjs, 1, kDirect, kFull>(p, stream);
+    case 2: return launch<kObjs, 2, kDirect, kFull>(p, stream);
+    case 3: return launch<kObjs, 3, kDirect, kFull>(p, stream);
+    default: return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// Launches the decoder on `stream`. Returns cudaGetLastError() after the
-// launch (0 on success). The caller checks shapes, types and limits.
+// Launches one variant of the decoder on `stream`. Variant 0 is the kernel,
+// for 1..4 objects and 1..3 channels. The measurement variants, each one
+// design choice away from it, are built for the main path's 2 objects and
+// 3 channels only:
+//   1 bulk_store     each warp's slab stored from a shared-memory tile with
+//                    one bulk copy (the TMA's non-tensor form)
+//   2 vector_store   the tile stored with 16-byte stores by every lane
+//   3 store_only     a constant through bulk_store's stores: the floor
+//   4 inline_taps    y taps computed per pixel, no per-warp table
+//   5 no_walk        both x-interpolated rows recomputed every row
+//   6 no_store       the decoder without its stores
+//   7, 8             slabs of 4 and 16 rows instead of 8
+//   9 fast_math      __expf and approximate division in the softmax
+//   10 prologue_only the launch and the prologue alone
+//   11 launch_only   the launch alone
+// Returns a CUDA error code, 0 on success. The caller checks shapes, types
+// and limits (1 <= n_objs <= 4, 1 <= ch <= 3, shared memory within the
+// card's; for the tiled stores, rows of img*ch floats a multiple of 4 and
+// out 16-byte aligned).
+extern "C" int st_decode_forward_variant(const float* pos,
+                                         const float* tmpl_raw,
+                                         const float* cont_raw,
+                                         const float* background, float* out,
+                                         int n, int img, int tmpl, int n_objs,
+                                         int ch, float sigma, int variant,
+                                         void* stream) {
+  if (n == 0) return 0;
+  const Params p{pos, tmpl_raw, cont_raw, background, out,
+                 n, img, tmpl, 0, sigma};
+  const auto s = (cudaStream_t)stream;
+  if (variant == 0) {
+    switch (n_objs) {
+      case 1: return launch_kernel<1>(p, ch, s);
+      case 2: return launch_kernel<2>(p, ch, s);
+      case 3: return launch_kernel<3>(p, ch, s);
+      case 4: return launch_kernel<4>(p, ch, s);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
+  if (n_objs != 2 || ch != 3) return (int)cudaErrorInvalidValue;
+  switch (variant) {
+    case 1: return launch<2, 3, kBulk, kFull>(p, s);
+    case 2: return launch<2, 3, kVector, kFull>(p, s);
+    case 3: return launch<2, 3, kBulk, kStoreOnly>(p, s);
+    case 4: return launch<2, 3, kDirect, kInlineTaps>(p, s);
+    case 5: return launch<2, 3, kDirect, kNoWalk>(p, s);
+    case 6: return launch<2, 3, kDirect, kNoStore>(p, s);
+    case 7: return launch<2, 3, kDirect, kFull>(p, s, 4);
+    case 8: return launch<2, 3, kDirect, kFull>(p, s, 16);
+    case 9: return launch<2, 3, kDirect, kFastMath>(p, s);
+    case 10: return launch<2, 3, kDirect, kPrologueOnly>(p, s);
+    case 11: return launch<2, 3, kDirect, kLaunchOnly>(p, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The kernel: launches the decoder on `stream`, as above.
 extern "C" int st_decode_forward(const float* pos, const float* tmpl_raw,
                                  const float* cont_raw,
                                  const float* background, float* out, int n,
                                  int img, int tmpl, int n_objs, int ch,
                                  float sigma, void* stream) {
-  if (n == 0) return 0;
-  const size_t smem = sizeof(float) * n_objs * (ch + 1) * tmpl * tmpl;
-  st_decode_forward_kernel<<<n, kThreads, smem, (cudaStream_t)stream>>>(
-      pos, tmpl_raw, cont_raw, background, out, img, tmpl, n_objs, ch, sigma);
-  return (int)cudaGetLastError();
+  return st_decode_forward_variant(pos, tmpl_raw, cont_raw, background, out,
+                                   n, img, tmpl, n_objs, ch, sigma, 0,
+                                   stream);
 }

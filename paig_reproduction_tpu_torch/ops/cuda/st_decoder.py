@@ -27,10 +27,29 @@ from paig_reproduction_tpu_torch.ops.cuda import build
 # to show that the main path went through the kernel).
 LAUNCHES = 0
 
-# The kernel keeps per-pixel colour sums for at most this many channels and
-# stages the object planes in at most 48 KB of shared memory.
+# The kernel keeps per-pixel colour sums for at most MAX_CH channels and the
+# warped values of at most MAX_OBJS objects in registers, and stages the
+# planes, the background and its tables in the shared memory one block may
+# use on an H100 (227 KB). A block is WARPS warps; a warp decodes slabs of
+# at most SLAB_ROWS rows.
 MAX_CH = 3
-MAX_SHARED_BYTES = 48 * 1024
+MAX_OBJS = 4
+WARPS = 32
+SLAB_ROWS = 8
+MAX_SHARED_BYTES = 227 * 1024
+
+# The kernel's measurement variants (csrc/st_decoder.cu,
+# st_decode_forward_variant, which says what each one changes): each is one
+# design choice away from the kernel (0) and built for the main path's 2
+# objects and 3 channels only. Only chip measurements launch them.
+VARIANTS = {"kernel": 0, "bulk_store": 1, "vector_store": 2,
+            "store_only": 3, "inline_taps": 4, "no_walk": 5, "no_store": 6,
+            "slab_rows_4": 7, "slab_rows_16": 8, "fast_math": 9,
+            "prologue_only": 10, "launch_only": 11}
+# Variants that store each warp's slab from a shared-memory tile.
+TILED = ("bulk_store", "vector_store", "store_only")
+# Variants that write no output.
+WRITE_NOTHING = ("no_store", "prologue_only", "launch_only")
 
 
 def st_decode_plain(assets: DecoderAssets, pos: torch.Tensor,
@@ -41,11 +60,51 @@ def st_decode_plain(assets: DecoderAssets, pos: torch.Tensor,
 
 @functools.cache
 def _forward_fn():
-    fn = build.load("st_decoder").st_decode_forward
+    fn = build.load("st_decoder").st_decode_forward_variant
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-                   + [ctypes.c_float, ctypes.c_void_p])
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+def slab_rows(cfg: DecoderConfig) -> int:
+    """Output rows of a slab, the unit one warp decodes: one y-table row
+    per lane and object."""
+    return min(cfg.img_hw[0], SLAB_ROWS, 32 // cfg.n_objs)
+
+
+def shared_bytes(cfg: DecoderConfig, tiled: bool = False) -> int:
+    """Dynamic shared memory of one block (csrc/st_decoder.cu,
+    shared_bytes): the planes as one float4 per texel, the background, each
+    warp's 32-row y table of float4s, the raw planes as the prologue copies
+    them, one base coordinate a row and, for a tiled store, each warp's
+    slab tile."""
+    img, t, o, ch = cfg.img_hw[0], cfg.tmpl_size, cfg.n_objs, cfg.conv_ch
+    floats = (4 * o * t * t + -(-img * img * ch // 4) * 4 + WARPS * 32 * 4
+              + o * t * t * (1 + ch) + img)
+    if tiled:
+        floats += WARPS * slab_rows(cfg) * img * ch
+    return 4 * floats
+
+
+def check_limits(cfg: DecoderConfig, tiled: bool = False):
+    """Raises ValueError for a configuration the kernel (or, with `tiled`,
+    a tiled-store variant) does not take."""
+    h, w = cfg.img_hw
+    o, ch = cfg.n_objs, cfg.conv_ch
+    if h != w:
+        raise ValueError(f"the kernel takes square frames, got {cfg.img_hw}")
+    if not 1 <= ch <= MAX_CH:
+        raise ValueError(f"the kernel takes 1..{MAX_CH} channels, got {ch}")
+    if not 1 <= o <= MAX_OBJS:
+        raise ValueError(f"the kernel takes 1..{MAX_OBJS} objects, got {o}")
+    if tiled and (w * ch * 4) % 16:
+        raise ValueError(f"a row of {w}x{ch} floats is not a multiple of 16 "
+                         f"bytes, which a tiled store needs")
+    if shared_bytes(cfg, tiled) > MAX_SHARED_BYTES:
+        raise ValueError(f"{shared_bytes(cfg, tiled)} bytes of shared "
+                         f"memory for {cfg} exceed the {MAX_SHARED_BYTES} a "
+                         f"block may use")
 
 
 def _check(assets: DecoderAssets, pos: torch.Tensor, cfg: DecoderConfig):
@@ -66,35 +125,56 @@ def _check(assets: DecoderAssets, pos: torch.Tensor, cfg: DecoderConfig):
                              f"expected {expected[name]}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if h != w:
-        raise ValueError(f"the kernel takes square frames, got {cfg.img_hw}")
-    if not 1 <= ch <= MAX_CH:
-        raise ValueError(f"the kernel takes 1..{MAX_CH} channels, got {ch}")
-    if 4 * o * (ch + 1) * t * t > MAX_SHARED_BYTES:
-        raise ValueError(f"{o} objects of {ch + 1} {t}x{t} planes exceed "
-                         f"{MAX_SHARED_BYTES} bytes of shared memory")
 
 
-def launch(assets: DecoderAssets, pos: torch.Tensor,
-           cfg: DecoderConfig) -> torch.Tensor:
-    """One kernel launch on the current stream: frames [N, H, W, C]."""
-    global LAUNCHES
+def _run(assets: DecoderAssets, pos: torch.Tensor, cfg: DecoderConfig,
+         variant: str, out=None) -> torch.Tensor:
     _check(assets, pos, cfg)
+    tiled = variant in TILED
+    check_limits(cfg, tiled)
     h, w = cfg.img_hw
-    out = torch.empty((pos.shape[0], h, w, cfg.conv_ch), dtype=pos.dtype,
-                      device=pos.device)
+    shape = (pos.shape[0], h, w, cfg.conv_ch)
+    if out is None:
+        out = torch.empty(shape, dtype=pos.dtype, device=pos.device)
+    elif (out.device != pos.device or out.dtype != torch.float32
+          or tuple(out.shape) != shape or not out.is_contiguous()):
+        raise ValueError(f"out must be a contiguous float32 {shape} tensor "
+                         f"on {pos.device}")
+    if tiled and out.data_ptr() % 16:
+        raise ValueError("out must be 16-byte aligned for a tiled store")
     with torch.cuda.device(pos.device):
         err = _forward_fn()(
             pos.data_ptr(), assets.template.data_ptr(),
             assets.contents.data_ptr(), assets.background.data_ptr(),
             out.data_ptr(), pos.shape[0], h, cfg.tmpl_size, cfg.n_objs,
-            cfg.conv_ch, float(cfg.log_sig),
+            cfg.conv_ch, float(cfg.log_sig), VARIANTS[variant],
             torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"st_decode_forward launch failed: CUDA error "
                            f"{err}")
+    return out
+
+
+def launch(assets: DecoderAssets, pos: torch.Tensor, cfg: DecoderConfig,
+           out=None) -> torch.Tensor:
+    """One kernel launch on the current stream: frames [N, H, W, C],
+    written into `out` if given (a contiguous float32 tensor)."""
+    global LAUNCHES
+    out = _run(assets, pos, cfg, "kernel", out)
     LAUNCHES += 1
     return out
+
+
+def launch_variant(assets: DecoderAssets, pos: torch.Tensor,
+                   cfg: DecoderConfig, variant: str,
+                   out=None) -> torch.Tensor:
+    """One launch of a measurement variant (see VARIANTS) at 2 objects and
+    3 channels; not counted in LAUNCHES. "store_only" writes a constant
+    frame."""
+    if variant != "kernel" and (cfg.n_objs, cfg.conv_ch) != (2, 3):
+        raise ValueError("the measurement variants are built for 2 objects "
+                         "and 3 channels only")
+    return _run(assets, pos, cfg, variant, out)
 
 
 class _STDecode(torch.autograd.Function):
@@ -105,8 +185,9 @@ class _STDecode(torch.autograd.Function):
     def forward(ctx, template, contents, background, pos, cfg):
         ctx.cfg = cfg
         ctx.save_for_backward(template, contents, background, pos)
-        return launch(DecoderAssets(template, contents, background), pos,
-                      cfg)
+        with torch.profiler.record_function("st_decode.forward"):
+            return launch(DecoderAssets(template, contents, background),
+                          pos, cfg)
 
     @staticmethod
     def backward(ctx, grad_out):
@@ -115,7 +196,8 @@ class _STDecode(torch.autograd.Function):
         wanted = [x for x in inputs if x.requires_grad]
         grads = iter(())
         if wanted:
-            with torch.enable_grad():
+            with torch.enable_grad(), torch.profiler.record_function(
+                    "st_decode.backward"):
                 out = st_decode_plain(DecoderAssets(*inputs[:3]), inputs[3],
                                       ctx.cfg)
                 grads = iter(torch.autograd.grad(out, wanted, grad_out))

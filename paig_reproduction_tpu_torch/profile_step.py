@@ -7,7 +7,10 @@ dataset), takes a few warm-up steps, then traces ``--steps`` train steps
 with ``torch.profiler``. Prints the median untraced step time, the traced
 host time per step, the device's busy time per step (the union of its
 kernels' intervals) and its idle share of the untraced step, the number of
-kernel launches per step, and the kernels that take the most device time.
+kernel launches per step, the kernels that take the most device time, and
+the ST decoder's device time and launches per step on both sides of
+autograd: its CUDA kernel in the forward, and the plain decode's recompute
+and gradient inside the ``st_decode.backward`` range.
 Needs a CUDA device.
 """
 from __future__ import annotations
@@ -38,6 +41,15 @@ def _busy_us(intervals):
             total += e - end
             end = e
     return total
+
+
+def _range_kernels(event):
+    """The device kernels launched inside a profiler range, its nested
+    operators' included."""
+    kernels = list(event.kernels)
+    for child in event.cpu_children:
+        kernels += _range_kernels(child)
+    return kernels
 
 
 def main(argv=None):
@@ -116,6 +128,26 @@ def main(argv=None):
                                        key=lambda kv: -kv[1][0])[:args.top]:
         print(f"  {total / args.steps / 1e3:8.3f} {count / args.steps:7.1f}"
               f"  {name[:110]}")
+    # The ST decoder on both sides of autograd. Its forward kernel comes from
+    # a library with its own CUDA runtime, which the profiler does not link
+    # to the calling range, so it is found by name; the backward is the
+    # plain decode's recompute and gradient inside its range.
+    forward = [e for e in kernels if "st_decode_kernel" in e.name]
+    backward = [k for e in prof.events()
+                if e.name == "st_decode.backward"
+                and e.device_type == torch.autograd.DeviceType.CPU
+                for k in _range_kernels(e)]
+    for side, ms, count in (
+            ("forward (the CUDA kernel)",
+             sum(e.time_range.elapsed_us() for e in forward), len(forward)),
+            ("backward (plain recompute and gradient)",
+             sum(k.duration for k in backward), len(backward))):
+        if not count:
+            print(f"st_decode {side}: not measured (no such kernels in the "
+                  f"trace)")
+            continue
+        print(f"st_decode {side}: {ms / args.steps / 1e3:.3f} ms device "
+              f"per step, {count / args.steps:.1f} launches per step")
 
 
 if __name__ == "__main__":

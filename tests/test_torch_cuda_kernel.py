@@ -38,7 +38,10 @@ def _inputs(img, tmpl, n_objs, ch, n, seed, device):
 
 @pytest.mark.parametrize("img,tmpl,n_objs,ch,n", [
     (32, 16, 2, 3, 1000), (32, 16, 2, 1, 10), (36, 18, 3, 3, 7),
-    (64, 32, 2, 1, 5)])
+    (64, 32, 2, 1, 5), (64, 32, 2, 3, 3),
+    # The persistent grid's edges: one frame, an N the grid does not
+    # divide, several frames a block (the seq-30 test graph's 26 x 100).
+    (32, 16, 2, 3, 1), (32, 16, 2, 3, 1001), (32, 16, 2, 3, 2600)])
 def test_kernel_matches_plain(cuda, img, tmpl, n_objs, ch, n):
     assets, pos, cfg = _inputs(img, tmpl, n_objs, ch, n, seed=n, device=cuda)
     before = tkernel.LAUNCHES
@@ -75,6 +78,50 @@ def test_kernel_rejects_bad_inputs(cuda):
         tkernel.launch(assets, pos.t().contiguous().t(), cfg)
     with pytest.raises(ValueError):
         tkernel.launch(assets, pos[:, :2].contiguous(), cfg)
+
+
+@pytest.mark.parametrize("variant", sorted(tkernel.VARIANTS))
+def test_kernel_variants_match_plain(cuda, variant):
+    """The measurement variants compute the kernel's function; the
+    store-only floors write their constant into every frame. None counts as
+    a launch of the kernel."""
+    assets, pos, cfg = _inputs(32, 16, 2, 3, 300, seed=5, device=cuda)
+    before = tkernel.LAUNCHES
+    out = tkernel.launch_variant(assets, pos, cfg, variant)
+    torch.cuda.synchronize()
+    assert tkernel.LAUNCHES == before
+    if variant in tkernel.WRITE_NOTHING:
+        return
+    if variant == "store_only":
+        assert bool((out == 0.5).all())
+    else:
+        # fast_math's approximate exp and division are held only loosely.
+        atol = 1e-3 if variant == "fast_math" else 2e-5
+        ref = tkernel.st_decode_plain(assets, pos, cfg)
+        torch.testing.assert_close(out, ref, rtol=0, atol=atol)
+
+
+def test_kernel_rejects_what_the_bulk_store_cannot_take(cuda):
+    # Rows of 31x3 floats are not a whole number of 16-byte chunks.
+    assets, pos, cfg = _inputs(31, 15, 2, 3, 4, seed=6, device=cuda)
+    with pytest.raises(ValueError, match="16 bytes"):
+        tkernel.launch_variant(assets, pos, cfg, "bulk_store")
+    # The kernel, storing from registers, takes them.
+    torch.testing.assert_close(tkernel.launch(assets, pos, cfg),
+                               tkernel.st_decode_plain(assets, pos, cfg),
+                               rtol=0, atol=2e-5)
+    # An output 4 bytes past an aligned address.
+    assets, pos, cfg = _inputs(32, 16, 2, 3, 4, seed=6, device=cuda)
+    flat = torch.empty(4 * 32 * 32 * 3 + 1, device=cuda)
+    with pytest.raises(ValueError, match="aligned"):
+        tkernel.launch_variant(assets, pos, cfg, "bulk_store",
+                               out=flat[1:].view(4, 32, 32, 3))
+
+
+def test_kernel_rejects_shapes_above_the_shared_memory_budget(cuda):
+    assets, pos, cfg = _inputs(128, 64, 4, 3, 2, seed=7, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        tkernel.launch(assets, pos, cfg)
 
 
 def test_physics_net_kernel_backend_matches_plain(cuda):

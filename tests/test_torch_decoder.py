@@ -165,3 +165,43 @@ def test_kernel_launch_rejects_cpu_tensors():
     tkernel.st_decode_fused(assets, torch.from_numpy(pos),
                             _torch_cfg(32, 16, 2, 3))
     assert tkernel.LAUNCHES == before
+
+
+@pytest.mark.parametrize("ch", [1, 3])
+@pytest.mark.parametrize("img,tmpl,n_objs,n", FAMILIES)
+def test_kernel_limits_take_every_task(img, tmpl, n_objs, n, ch):
+    """Every task family fits the kernel: shared memory within one
+    block's."""
+    cfg = _torch_cfg(img, tmpl, n_objs, ch)
+    tkernel.check_limits(cfg)
+    assert tkernel.shared_bytes(cfg) <= tkernel.MAX_SHARED_BYTES
+
+
+def test_kernel_shared_bytes_of_the_main_path():
+    # 8 KB of float4 planes, the 12 KB background, 32 warps' 512-byte y
+    # tables, the 8 KB of raw planes and 32 row coordinates at 32/16/2/3;
+    # the tiled-store variants add 32 warps' 8-row slab tiles.
+    cfg = _torch_cfg(32, 16, 2, 3)
+    assert tkernel.shared_bytes(cfg) == 44 * 1024 + 4 * 32
+    tkernel.check_limits(cfg, tiled=True)
+    assert tkernel.shared_bytes(cfg, tiled=True) == 140 * 1024 + 4 * 32
+
+
+@pytest.mark.parametrize("img_hw,tmpl,n_objs,ch,tiled,match", [
+    ((31, 31), 15, 2, 3, True, "16 bytes"),
+    ((128, 128), 64, 4, 3, False, "shared memory"),
+    ((32, 32), 16, 5, 3, False, "objects"),
+    ((32, 32), 16, 2, 4, False, "channels"),
+    ((32, 36), 16, 2, 3, False, "square"),
+    ((256, 256), 16, 1, 1, False, "shared memory"),
+])
+def test_kernel_limits_reject(img_hw, tmpl, n_objs, ch, tiled, match):
+    cfg = tdec.DecoderConfig(img_hw=img_hw, tmpl_size=tmpl, n_objs=n_objs,
+                             conv_ch=ch, log_sig=1.0)
+    with pytest.raises(ValueError, match=match):
+        tkernel.check_limits(cfg, tiled)
+
+
+def test_kernel_limits_take_odd_widths_without_a_tile():
+    # Stored from registers, a 31x31x3 frame needs no 16-byte rows.
+    tkernel.check_limits(_torch_cfg(31, 15, 2, 3))
