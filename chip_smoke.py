@@ -12,9 +12,10 @@ Phases, each printing its elapsed seconds:
 3. kernel  - each kernel against its plain PyTorch version on the card, at
              the main path's shapes, the other tasks' shapes and the edges
              of its grid, with its device time (CUDA graph replays between
-             CUDA events) beside the plain version's, its bound, its share
-             of the bound and the store-only floor (the same grid writing a
-             constant through the same stores);
+             CUDA events) at each task's train shape beside the plain
+             version's, its bound and its share of the bound, and at the
+             main path's shapes the store-only floor (csrc/store_floor.cu:
+             the decoder's grid and direct stores writing a constant);
 4. train   - the port's CLI entry trains spring_color for 2 epochs at B=100
              on the tracked dataset, with every kernel's launch count set to
              0 just before and read just after; losses must be finite and
@@ -22,12 +23,20 @@ Phases, each printing its elapsed seconds:
 5. kernels - one JSON line with every kernel's launches, error, times,
              share of its bound and store-only floor.
 
+With ``--parent OLD/csrc/st_decoder.cu`` (an earlier source of the kernel
+with PR 4's C entry, ``st_decode_forward`` without ``slots``) the kernel
+phase also builds that source and times it beside the kernel at every timed
+shape, in the order earlier, kernel, kernel, earlier, each held to the plain
+version first.
+
 The last line is {"ok": true, "device": {...}}. Any failure raises, and the
 script exits non-zero without that line; without a CUDA device it fails at
 once. It writes only under a temporary directory.
 """
 from __future__ import annotations
 
+import argparse
+import ctypes
 import json
 import math
 import os
@@ -40,6 +49,11 @@ from contextlib import contextmanager
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 DATA_DIR = os.path.join(REPO, "data", "datasets")
+
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and f32 FLOP/s outside
+# the tensor cores.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_FLOP_PER_S = 67e12
 
 # Forward tolerance of a kernel against its plain version: both compute in
 # f32 (TF32 off) and differ only in the order of their sums.
@@ -57,28 +71,163 @@ def phase(name):
 
 
 # (N, img, T, o, ch): the main path's train (N=1000) and eval (N=800)
-# decodes at 32/16/2/3, the other tasks' shapes (64/32/2/3 is the largest
-# block the kernel stages), and the edges of the
-# persistent grid: one frame, an N that the grid does not divide, and the
-# seq-30 test graph's 26 rollout frames x B=100 (several frames a block).
-ST_DECODE_SHAPES = [(1000, 32, 16, 2, 3), (800, 32, 16, 2, 3),
-                    (37, 36, 18, 3, 3), (19, 64, 32, 2, 1), (5, 32, 16, 2, 1),
-                    (3, 64, 32, 2, 3), (1, 32, 16, 2, 3),
-                    (1001, 32, 16, 2, 3), (2600, 32, 16, 2, 3)]
+# decodes at 32/16/2/3; the other tasks' train decodes at B=100
+# (3bp_color's 16 frames a sequence; 64x64 mnist_spring_color's 10, in one
+# and three channels, 64/32/2/3 being the largest block the kernel stages);
+# small N of those shapes; and the edges of the persistent grid: one frame,
+# an N that the grid does not divide, and the seq-30 test graph's 26
+# rollout frames x B=100 (several slabs a warp).
+TIMED_SHAPES = [(1000, 32, 16, 2, 3), (800, 32, 16, 2, 3),
+                (1600, 36, 18, 3, 3), (1000, 64, 32, 2, 1),
+                (1000, 64, 32, 2, 3)]
+ST_DECODE_SHAPES = TIMED_SHAPES + [
+    (37, 36, 18, 3, 3), (19, 64, 32, 2, 1), (5, 32, 16, 2, 1),
+    (3, 64, 32, 2, 3), (1, 32, 16, 2, 3), (1001, 32, 16, 2, 3),
+    (2600, 32, 16, 2, 3)]
+# The kernel's slab height at 2 objects (csrc/st_decoder.cu, slab_rows).
+SLAB_ROWS = 8
 
 
-def check_st_decode():
-    """The ST-decoder kernel against its plain version. Returns the JSON
-    fields measured here."""
+def time_ms(fn, runs=21, reps=10):
+    """Device time of one call of `fn` (ms): `reps` calls are captured in a
+    CUDA graph, so the host's launch overhead is not timed, and the median
+    over `runs` replays timed with CUDA events is divided by `reps`."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
+
+
+def st_decode_bound(n, img, tmpl, n_objs, ch):
+    """Least time (ms) the card needs for one decode, and what bounds it.
+
+    Bytes: each input read once, the output written once. Operations: the
+    work these inputs need. Each interpolation row has at most two
+    non-zeros, so a warped value is 4 taps (2 ops each) per plane; per
+    pixel that is n_objs*(8*(ch+1) + 1) for the warps and the -5, 4*(o+1)
+    for the softmax (max, subtract, exp, sum) and 2*(o+1)*ch for the
+    composite."""
+    f32 = 4
+    bytes_moved = f32 * (n * 2 * n_objs + n_objs * tmpl * tmpl * (1 + ch)
+                         + img * img * ch + n * img * img * ch)
+    per_pixel = (n_objs * (8 * (ch + 1) + 1) + 4 * (n_objs + 1)
+                 + 2 * (n_objs + 1) * ch)
+    ops = n * img * img * per_pixel
+    t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_F32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def decoder_inputs(n, img, tmpl, n_objs, ch, seed, template_logit=None):
+    import torch
+    from paig_reproduction_tpu_torch.models.decoder import (
+        DecoderAssets,
+        DecoderConfig,
+    )
+    g = torch.Generator().manual_seed(seed)
+    template = torch.randn(n_objs, tmpl, tmpl, generator=g)
+    if template_logit is not None:
+        template.fill_(template_logit)
+    assets = DecoderAssets(
+        template=template,
+        contents=torch.randn(n_objs, tmpl, tmpl, ch, generator=g),
+        background=torch.rand(img, img, ch, generator=g))
+    # Positions over the frame and up to a quarter-frame beyond each edge,
+    # so the zero padding of the warp is exercised.
+    pos = torch.rand(n, 2 * n_objs, generator=g) * 1.5 * img - 0.25 * img
+    cfg = DecoderConfig(img_hw=(img, img), tmpl_size=tmpl, n_objs=n_objs,
+                        conv_ch=ch, log_sig=1.0)
+    return (DecoderAssets(*(x.cuda() for x in assets)), pos.cuda(), cfg)
+
+
+def store_floor_fn():
+    """csrc/store_floor.cu's entry: out [N, img, img, ch] <- 0.5 through the
+    decoder's grid and stores."""
+    import torch
+    from paig_reproduction_tpu_torch.ops.cuda import build
+    fn = build.load("store_floor").store_floor
+    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def run(out):
+        n, img, _, ch = out.shape
+        err = fn(out.data_ptr(), n, img, ch, SLAB_ROWS,
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"store_floor failed: CUDA error {err}")
+        return out
+    return run
+
+
+def start_parent_build(src):
+    """Starts nvcc on an earlier st_decoder.cu; returns (process, library
+    path)."""
+    from paig_reproduction_tpu_torch.ops.cuda import build
+    lib = os.path.join(tempfile.mkdtemp(prefix="paig_parent_"),
+                       "libst_decoder_parent.so")
+    proc = subprocess.Popen([build.nvcc(), *build.NVCC_FLAGS, "-o", lib, src],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    return proc, lib
+
+
+def parent_fn(proc, lib):
+    """The earlier source's decode, once its build has ended: a function of
+    (assets, pos, cfg) writing a new output, as the kernel's wrapper
+    does."""
+    import torch
+    log, _ = proc.communicate()
+    if proc.returncode:
+        raise RuntimeError(f"nvcc failed for the earlier source:\n{log}")
+    fn = ctypes.CDLL(lib).st_decode_forward
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                   + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+
+    def run(assets, pos, cfg):
+        img = cfg.img_hw[0]
+        out = torch.empty((pos.shape[0], img, img, cfg.conv_ch),
+                          device=pos.device)
+        err = fn(pos.data_ptr(), assets.template.data_ptr(),
+                 assets.contents.data_ptr(), assets.background.data_ptr(),
+                 out.data_ptr(), pos.shape[0], img, cfg.tmpl_size,
+                 cfg.n_objs, cfg.conv_ch, float(cfg.log_sig),
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"the earlier st_decode_forward failed: "
+                               f"CUDA error {err}")
+        return out
+    return run
+
+
+def check_st_decode(parent=None):
+    """The ST-decoder kernel against its plain version, and `parent` (an
+    earlier source's decode) beside it if given. Returns the JSON fields
+    measured here."""
     import torch
     from paig_reproduction_tpu_torch.models.decoder import DecoderAssets
     from paig_reproduction_tpu_torch.ops.cuda import st_decoder as sd
-    from paig_reproduction_tpu_torch.ops.cuda.measure import (
-        decoder_inputs,
-        st_decode_bound,
-        time_ms,
-    )
 
+    store_floor = store_floor_fn()
     max_err = 0.0
     timings = {}
     for n, img, tmpl, n_objs, ch in ST_DECODE_SHAPES:
@@ -88,28 +237,49 @@ def check_st_decode():
             torch.cuda.synchronize()
             ref = sd.st_decode_plain(assets, pos, cfg)
         err = (out - ref).abs().max().item()
-        print(f"st_decode N={n} img={img} T={tmpl} o={n_objs} ch={ch}: "
-              f"max_abs_err={err:.3e} (tolerance {FWD_ATOL})")
+        shape = f"N={n} img={img} T={tmpl} o={n_objs} ch={ch}"
+        print(f"st_decode {shape}: max_abs_err={err:.3e} (tolerance "
+              f"{FWD_ATOL})")
         if not err <= FWD_ATOL:
             raise AssertionError(f"st_decode disagrees with its plain "
                                  f"version: {err} > {FWD_ATOL}")
         max_err = max(max_err, err)
-        if n in (1000, 800):
-            ms = time_ms(lambda: sd.launch(assets, pos, cfg))
-            plain_ms = time_ms(lambda: sd.st_decode_plain(assets, pos, cfg))
-            # Launch plus the output's bytes: the same grid and bulk stores
-            # writing a constant frame.
-            floor_ms = time_ms(lambda: sd.launch_variant(
-                assets, pos, cfg, "store_only", out=out))
-            bound_ms, bound_by = st_decode_bound(n, img, tmpl, n_objs, ch)
-            timings[n] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                              bound_by=bound_by,
-                              share_of_bound=bound_ms / ms,
-                              store_floor_ms=floor_ms)
-            print(f"st_decode N={n}: kernel {ms * 1e3:.2f} us, plain "
-                  f"{plain_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us "
-                  f"({bound_by}), share of bound {bound_ms / ms:.3f}, "
-                  f"store-only floor {floor_ms * 1e3:.2f} us")
+        if (n, img, tmpl, n_objs, ch) not in TIMED_SHAPES:
+            continue
+        ms = time_ms(lambda: sd.launch(assets, pos, cfg))
+        plain_ms = time_ms(lambda: sd.st_decode_plain(assets, pos, cfg))
+        bound_ms, bound_by = st_decode_bound(n, img, tmpl, n_objs, ch)
+        timing = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                      bound_by=bound_by, share_of_bound=bound_ms / ms)
+        line = (f"st_decode {shape}: kernel {ms * 1e3:.3f} us, plain "
+                f"{plain_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.3f} us "
+                f"({bound_by}), share of bound {bound_ms / ms:.3f}")
+        if (img, tmpl, n_objs, ch) == (32, 16, 2, 3):
+            floor = torch.empty_like(out)
+            store_floor(floor)
+            torch.cuda.synchronize()
+            if not bool((floor == 0.5).all()):
+                raise AssertionError("store_floor did not write every frame")
+            timing["store_floor_ms"] = time_ms(lambda: store_floor(floor))
+            line += (f", store-only floor "
+                     f"{timing['store_floor_ms'] * 1e3:.3f} us")
+        print(line)
+        if parent is not None:
+            old = parent(assets, pos, cfg)
+            torch.cuda.synchronize()
+            old_err = (old - ref).abs().max().item()
+            if not old_err <= FWD_ATOL:
+                raise AssertionError(f"the earlier source disagrees with the "
+                                     f"plain version: {old_err}")
+            ab = [(name, time_ms(fn)) for name, fn in (
+                ("earlier", lambda: parent(assets, pos, cfg)),
+                ("kernel", lambda: sd.launch(assets, pos, cfg)),
+                ("kernel", lambda: sd.launch(assets, pos, cfg)),
+                ("earlier", lambda: parent(assets, pos, cfg)))]
+            timing["ab_us"] = ab
+            print(f"st_decode {shape} A/B (us): " + ", ".join(
+                f"{name} {t * 1e3:.3f}" for name, t in ab))
+        timings[n, img, tmpl, n_objs, ch] = timing
 
     assets, pos, cfg = decoder_inputs(64, 32, 16, 2, 3, seed=1,
                                       template_logit=90.0)
@@ -206,7 +376,12 @@ def step_ms(trainer, batch_size=100, steps=20):
     return statistics.median(times)
 
 
-def main():
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--parent", default=None,
+                        help="an earlier st_decoder.cu to time beside the "
+                             "kernel")
+    args = parser.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs only "
@@ -226,12 +401,15 @@ def main():
         use_full_f32()
 
     with phase("build"):
+        parent_build = (start_parent_build(os.path.abspath(args.parent))
+                        if args.parent else None)
         for name, (seconds, log) in build.build().items():
             print(log.strip())
             print(f"built {name}.cu in {seconds:.2f} s")
+        parent = parent_fn(*parent_build) if parent_build else None
 
     with phase("kernel st_decode"):
-        max_err, timings = check_st_decode()
+        max_err, timings = check_st_decode(parent)
 
     with phase("train"):
         launches, trainer = train()
@@ -239,7 +417,7 @@ def main():
         print(f"median train step: {ms:.2f} ms at B=100 on {smi}")
 
     with phase("kernels"):
-        main_path = timings[1000]
+        main_path = timings[TIMED_SHAPES[0]]
         print(json.dumps({"kernels": [{
             "name": "st_decode",
             "route": "cuda",

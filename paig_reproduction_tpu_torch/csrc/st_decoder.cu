@@ -16,10 +16,10 @@
 // bound by instruction issue: a pixel costs about 110 instructions (two
 // taps and the walk below per object, three exact expf, one IEEE
 // division, the composite, three stores), some 3.9 M warp instructions at
-// N=1000. Measured on an H100 80GB HBM3 at 700 W with the variants below:
-// the launch alone takes 1.8 us, the prologue 1.8 us more; the stores are
-// hidden (no_store is as slow as the kernel); exact expf and division cost
-// 0.3 us over the intrinsics (fast_math).
+// N=1000. Measured on an H100 80GB HBM3 at 700 W with variants of this
+// kernel (PERF.md): the launch alone takes about 2 us, the prologue 1.8 us
+// more; the stores are hidden (without them it is no faster); exact expf
+// and division cost 0.4 us over the intrinsics.
 //
 // No tensor cores, on purpose: the Pallas kernel's two dense [img, T]
 // matmuls per plane do 4x the needed arithmetic (each interpolation row has
@@ -47,8 +47,8 @@
 // - Stores go straight from registers, three floats a pixel. No block
 //   barrier follows the prologue, so one warp's stores overlap the others'
 //   arithmetic; staging slabs in shared memory for a bulk copy (TMA) or for
-//   16-byte stores measured slower (bulk_store, vector_store), as the tile
-//   costs shared-memory bandwidth and a warp barrier per slab.
+//   16-byte stores measured about 2 us slower, as the tile costs
+//   shared-memory bandwidth and a warp barrier per slab.
 //
 // All arithmetic is f32 with expf and IEEE division. The source coordinates
 // take the plain decoder's operations in its order
@@ -64,26 +64,7 @@ namespace {
 // is paid once per SM, and 64 registers a thread fill the register file.
 constexpr int kWarps = 32;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kSlabRows = 8;  // the kernel's slab height
-
-// How a warp's pixels reach device memory.
-enum Store : int {
-  kDirect = 0,  // each lane stores its pixel's channels from registers
-  kBulk = 1,    // a per-warp tile in shared memory, one bulk copy (TMA)
-  kVector = 2,  // a per-warp tile, 16-byte stores by every lane
-};
-
-// What the warp computes.
-enum Mode : int {
-  kFull = 0,        // the decoder
-  kStoreOnly = 1,   // a constant through the same stores: the floor
-  kInlineTaps = 2,  // y taps computed per pixel, no per-warp table
-  kNoWalk = 3,      // both x-interpolated rows recomputed every row
-  kNoStore = 4,     // the decoder, storing only a pixel that is negative
-  kFastMath = 5,    // __expf and approximate division in the softmax
-  kPrologueOnly = 6,  // the launch and the prologue alone
-  kLaunchOnly = 7,    // the launch alone: every block returns at once
-};
+constexpr int kSlabRows = 8;
 
 struct Params {
   const float* pos;         // [N, 2*o]
@@ -96,12 +77,9 @@ struct Params {
   float sigma;
 };
 
-// Rows of a slab, the unit of one warp: at most one y-table row per lane
-// and object; `rows` if the caller asks for a height.
-int slab_rows(int img, int n_objs, int rows) {
-  const int most = 32 / n_objs;
-  if (rows <= 0) rows = kSlabRows;
-  if (rows > most) rows = most;
+// Rows of a slab: at most one y-table row per lane and object.
+int slab_rows(int img, int n_objs) {
+  const int rows = kSlabRows < 32 / n_objs ? kSlabRows : 32 / n_objs;
   return img < rows ? img : rows;
 }
 
@@ -113,15 +91,11 @@ __host__ __device__ inline int bg_floats(int img, int ch) {
 
 // Dynamic shared memory: the planes as one float4 per texel, the
 // background, each warp's 32-row y table, the raw planes as the prologue
-// copies them, base_coord of every row and, for the tiled stores, each
-// warp's slab tile.
-size_t shared_bytes(int img, int tmpl, int n_objs, int ch, int store,
-                    int rows) {
-  size_t floats = 4 * (size_t)n_objs * tmpl * tmpl + bg_floats(img, ch) +
-                  (size_t)kWarps * 32 * 4 +
-                  (size_t)n_objs * tmpl * tmpl * (1 + ch) + img;
-  if (store != kDirect) floats += (size_t)kWarps * rows * img * ch;
-  return sizeof(float) * floats;
+// copies them and base_coord of every row.
+int shared_bytes(int img, int tmpl, int n_objs, int ch) {
+  return (int)sizeof(float) *
+         (4 * n_objs * tmpl * tmpl + bg_floats(img, ch) + kWarps * 32 * 4 +
+          n_objs * tmpl * tmpl * (1 + ch) + img);
 }
 
 // The source coordinate of output pixel i along one axis, in template
@@ -173,10 +147,9 @@ __device__ __forceinline__ void copy_async(float* dst, const float* src) {
                :: "r"(d), "l"(src) : "memory");
 }
 
-template <int kObjs, int kCh, int kStore, int kMode>
+template <int kObjs, int kCh>
 __global__ void __launch_bounds__(kThreads, 1)
 st_decode_kernel(Params p) {
-  if constexpr (kMode == kLaunchOnly) return;
   extern __shared__ __align__(128) unsigned char smem[];
   const int img = p.img, tmpl = p.tmpl, rows = p.rows;
   const int plane = tmpl * tmpl;
@@ -186,14 +159,12 @@ st_decode_kernel(Params p) {
   float4* planes = reinterpret_cast<float4*>(smem);  // [o][T][T]
   float* bg = reinterpret_cast<float*>(planes + kObjs * plane);
   float4* ytabs = reinterpret_cast<float4*>(bg + bg_floats(img, kCh));
-  float* tiles = reinterpret_cast<float*>(ytabs + kWarps * 32);
-  float* raw = tiles + (kStore != kDirect ? kWarps * rows * img * kCh : 0);
+  float* raw = reinterpret_cast<float*>(ytabs + kWarps * 32);
   float* bases = raw + kObjs * plane * (1 + kCh);  // base_coord of each row
 
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
-  float4* ytab = ytabs + warp * 32;     // [o][rows]
-  float* tile = tiles + warp * rows * img * kCh;
+  float4* ytab = ytabs + warp * 32;  // [o][rows]
 
   // Each warp decodes slabs of `rows` output rows: unit u is frame
   // u / slabs, rows (u % slabs) * rows onwards, and goes to block
@@ -217,25 +188,22 @@ st_decode_kernel(Params p) {
   // Prologue, once per block: the raw planes and the background in one
   // round of asynchronous copies, all in flight together, then
   // template + 5 and sigmoid(contents) as float4 planes.
-  if constexpr (kMode != kStoreOnly) {
-    const int n_tmpl = kObjs * plane;
-    for (int i = tid; i < n_tmpl * (1 + kCh); i += kThreads)
-      copy_async(raw + i, i < n_tmpl ? p.tmpl_raw + i
-                                     : p.cont_raw + (i - n_tmpl));
-    for (int i = tid; i < frame; i += kThreads)
-      copy_async(bg + i, p.background + i);
-    for (int i = tid; i < img; i += kThreads) bases[i] = base_coord(i, img);
-    asm volatile("cp.async.wait_all;" ::: "memory");
-    __syncthreads();
-    for (int i = tid; i < n_tmpl; i += kThreads) {
-      const float* c = raw + n_tmpl + i * kCh;
-      planes[i] = make_float4(raw[i] + 5.0f, sigmoid(c[0]),
-                              kCh > 1 ? sigmoid(c[1]) : 0.0f,
-                              kCh > 2 ? sigmoid(c[2]) : 0.0f);
-    }
-    __syncthreads();
+  const int n_tmpl = kObjs * plane;
+  for (int i = tid; i < n_tmpl * (1 + kCh); i += kThreads)
+    copy_async(raw + i, i < n_tmpl ? p.tmpl_raw + i
+                                   : p.cont_raw + (i - n_tmpl));
+  for (int i = tid; i < frame; i += kThreads)
+    copy_async(bg + i, p.background + i);
+  for (int i = tid; i < img; i += kThreads) bases[i] = base_coord(i, img);
+  asm volatile("cp.async.wait_all;" ::: "memory");
+  __syncthreads();
+  for (int i = tid; i < n_tmpl; i += kThreads) {
+    const float* c = raw + n_tmpl + i * kCh;
+    planes[i] = make_float4(raw[i] + 5.0f, sigmoid(c[0]),
+                            kCh > 1 ? sigmoid(c[1]) : 0.0f,
+                            kCh > 2 ? sigmoid(c[2]) : 0.0f);
   }
-  if constexpr (kMode == kPrologueOnly) return;
+  __syncthreads();
 
   // Each lane walks down its columns; consecutive rows mostly reuse the
   // same two template rows, so each object keeps its last two
@@ -246,7 +214,6 @@ st_decode_kernel(Params p) {
     const int f = u / slabs;
     const int h0 = (u - f * slabs) * rows;
     const int h1 = min(img, h0 + rows);
-    const float* fp = p.pos + (size_t)f * 2 * kObjs;
     float* out = p.out + (size_t)f * frame;
     float px[kObjs];
 #pragma unroll
@@ -254,231 +221,142 @@ st_decode_kernel(Params p) {
     const float py = pos_y;
     load_pos(u + stride);
 
-    if constexpr (kMode != kInlineTaps && kMode != kStoreOnly) {
-      __syncwarp();
-      if (lane < kObjs * rows) {
-        const int h = h0 + lane % rows;
-        if (h < img) ytab[lane] = tap_row(bases[h], py, img, tmpl, p.sigma);
-      }
-      __syncwarp();
+    __syncwarp();
+    if (lane < kObjs * rows) {
+      const int h = h0 + lane % rows;
+      if (h < img) ytab[lane] = tap_row(bases[h], py, img, tmpl, p.sigma);
     }
-    if constexpr (kStore != kDirect) {
-      // The previous slab's store has read this warp's tile.
-      if constexpr (kStore == kBulk)
-        if (lane == 0)
-          asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
-      __syncwarp();
-    }
+    __syncwarp();
 
     for (int w = lane; w < img; w += 32) {
       float4 tx[kObjs], c0[kObjs], c1[kObjs];
       int jw[kObjs];
-      if constexpr (kMode != kStoreOnly) {
 #pragma unroll
-        for (int o = 0; o < kObjs; ++o) {
-          tx[o] = tap_row(bases[w], px[o], img, tmpl, p.sigma);
-          jw[o] = -0x40000000;
-        }
+      for (int o = 0; o < kObjs; ++o) {
+        tx[o] = tap_row(bases[w], px[o], img, tmpl, p.sigma);
+        jw[o] = -0x40000000;
       }
       const float* bg_px = bg + (h0 * img + w) * kCh;
-      float* dst = kStore == kDirect ? out + (h0 * img + w) * kCh
-                                     : tile + w * kCh;
+      float* dst = out + (h0 * img + w) * kCh;
       for (int h = h0; h < h1; ++h, bg_px += img * kCh, dst += img * kCh) {
-        float res[kCh];
-        if constexpr (kMode == kStoreOnly) {
+        float4 val[kObjs];
+        float logit[kObjs];
+        float m = 1.0f;  // the background's logit
 #pragma unroll
-          for (int c = 0; c < kCh; ++c) res[c] = 0.5f;
-        } else {
-          float4 val[kObjs];
-          float logit[kObjs];
-          float m = 1.0f;  // the background's logit
-#pragma unroll
-          for (int o = 0; o < kObjs; ++o) {
-            const float4 y = kMode == kInlineTaps
-                                 ? tap_row(base_coord(h, img), fp[2 * o + 1],
-                                           img, tmpl, p.sigma)
-                                 : ytab[o * rows + h - h0];
-            const int j0 = __float_as_int(y.z);
-            // x-interpolated template row j; zero outside the template.
-            const float4* pl = planes + o * plane;
-            const int jx0 = __float_as_int(tx[o].z);
-            const int x0 = jx0 >= 0 && jx0 < tmpl ? jx0 : 0;
-            const int x1 = jx0 + 1 >= 0 && jx0 + 1 < tmpl ? jx0 + 1 : 0;
-            auto xrow = [&](int j) {
-              return j >= 0 && j < tmpl
-                         ? axpby(tx[o].x, pl[j * tmpl + x0], tx[o].y,
-                                 pl[j * tmpl + x1])
-                         : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-            };
-            if (kMode == kNoWalk || j0 != jw[o]) {
-              c0[o] = kMode != kNoWalk && j0 == jw[o] + 1 ? c1[o] : xrow(j0);
-              c1[o] = xrow(j0 + 1);
-              jw[o] = j0;
-            }
-            // Wx first, then Wy: both weights of a tap outside the
-            // template are zero, as are its rows.
-            val[o] = axpby(y.x, c0[o], y.y, c1[o]);
-            logit[o] = val[o].x - 5.0f;
-            m = fmaxf(m, logit[o]);
-          }
-          // kFastMath swaps in the approximate intrinsics, only to time
-          // what the exact expf and division cost.
-          auto exp_ = [](float x) {
-            return kMode == kFastMath ? __expf(x) : expf(x);
+        for (int o = 0; o < kObjs; ++o) {
+          const float4 y = ytab[o * rows + h - h0];
+          const int j0 = __float_as_int(y.z);
+          // x-interpolated template row j; zero outside the template.
+          const float4* pl = planes + o * plane;
+          const int jx0 = __float_as_int(tx[o].z);
+          const int x0 = jx0 >= 0 && jx0 < tmpl ? jx0 : 0;
+          const int x1 = jx0 + 1 >= 0 && jx0 + 1 < tmpl ? jx0 + 1 : 0;
+          auto xrow = [&](int j) {
+            return j >= 0 && j < tmpl
+                       ? axpby(tx[o].x, pl[j * tmpl + x0], tx[o].y,
+                               pl[j * tmpl + x1])
+                       : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
           };
-          const float e_bg = exp_(1.0f - m);
-          float s = e_bg;
-#pragma unroll
-          for (int c = 0; c < kCh; ++c) res[c] = e_bg * bg_px[c];
-#pragma unroll
-          for (int o = 0; o < kObjs; ++o) {
-            const float e = exp_(logit[o] - m);
-            s += e;
-            res[0] += e * val[o].y;
-            if constexpr (kCh > 1) res[1] += e * val[o].z;
-            if constexpr (kCh > 2) res[2] += e * val[o].w;
+          if (j0 != jw[o]) {
+            c0[o] = j0 == jw[o] + 1 ? c1[o] : xrow(j0);
+            c1[o] = xrow(j0 + 1);
+            jw[o] = j0;
           }
-          const float inv = kMode == kFastMath ? __fdividef(1.0f, s)
-                                               : 1.0f / s;
+          // Wx first, then Wy: both weights of a tap outside the
+          // template are zero, as are its rows.
+          val[o] = axpby(y.x, c0[o], y.y, c1[o]);
+          logit[o] = val[o].x - 5.0f;
+          m = fmaxf(m, logit[o]);
+        }
+        const float e_bg = expf(1.0f - m);
+        float s = e_bg;
+        float res[kCh];
 #pragma unroll
-          for (int c = 0; c < kCh; ++c) res[c] *= inv;
-        }
-        // A composite of sigmoids and a background in [0, 1] is never
-        // negative: kNoStore times the arithmetic without the stores.
-        if (kMode != kNoStore || res[0] < 0.0f) {
+        for (int c = 0; c < kCh; ++c) res[c] = e_bg * bg_px[c];
 #pragma unroll
-          for (int c = 0; c < kCh; ++c) dst[c] = res[c];
+        for (int o = 0; o < kObjs; ++o) {
+          const float e = expf(logit[o] - m);
+          s += e;
+          res[0] += e * val[o].y;
+          if constexpr (kCh > 1) res[1] += e * val[o].z;
+          if constexpr (kCh > 2) res[2] += e * val[o].w;
         }
-      }
-    }
-
-    if constexpr (kStore != kDirect) {
-      // The slab is contiguous in the output: rows h0..h1-1 of frame f.
-      const int floats = (h1 - h0) * img * kCh;
-      float* dst = out + h0 * img * kCh;
-      if constexpr (kStore == kBulk) {
-        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-        __syncwarp();
-        if (lane == 0) {
-          const uint32_t src =
-              static_cast<uint32_t>(__cvta_generic_to_shared(tile));
-          asm volatile(
-              "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
-              :: "l"(dst), "r"(src), "r"(floats * 4) : "memory");
-          asm volatile("cp.async.bulk.commit_group;" ::: "memory");
-        }
-      } else {
-        __syncwarp();
-        for (int i = lane; i < floats / 4; i += 32)
-          reinterpret_cast<float4*>(dst)[i] =
-              reinterpret_cast<const float4*>(tile)[i];
+        const float inv = 1.0f / s;
+#pragma unroll
+        for (int c = 0; c < kCh; ++c) dst[c] = res[c] * inv;
       }
     }
   }
-  if constexpr (kStore == kBulk)
-    if (lane == 0) asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
 }
 
-template <int kObjs, int kCh, int kStore, int kMode>
-int launch(Params p, cudaStream_t stream, int rows = 0) {
-  auto kernel = st_decode_kernel<kObjs, kCh, kStore, kMode>;
-  p.rows = slab_rows(p.img, kObjs, rows);
-  const size_t smem =
-      shared_bytes(p.img, p.tmpl, kObjs, kCh, kStore, p.rows);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  int device, sms, per_sm;
-  if (err != cudaSuccess ||
-      (err = cudaGetDevice(&device)) != cudaSuccess ||
-      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    device)) != cudaSuccess ||
-      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, kernel, kThreads, smem)) != cudaSuccess)
-    return (int)err;
-  // Every block that fits on the card at once, each warp walking its
-  // share of the slabs.
-  const long units = (long)p.n * ((p.img + p.rows - 1) / p.rows);
-  const long slots = (long)(per_sm > 0 ? per_sm : 1) * sms;
-  const long grid = units < slots ? units : slots;
-  kernel<<<(int)grid, kThreads, smem, stream>>>(p);
-  return (int)cudaGetLastError();
-}
+using Kernel = void (*)(Params);
 
-template <int kObjs>
-int launch_kernel(const Params& p, int ch, cudaStream_t stream) {
-  switch (ch) {
-    case 1: return launch<kObjs, 1, kDirect, kFull>(p, stream);
-    case 2: return launch<kObjs, 2, kDirect, kFull>(p, stream);
-    case 3: return launch<kObjs, 3, kDirect, kFull>(p, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
+// The instantiation for n_objs objects and ch channels, or null.
+Kernel kernel_for(int n_objs, int ch) {
+  static const Kernel kernels[4][3] = {
+      {st_decode_kernel<1, 1>, st_decode_kernel<1, 2>, st_decode_kernel<1, 3>},
+      {st_decode_kernel<2, 1>, st_decode_kernel<2, 2>, st_decode_kernel<2, 3>},
+      {st_decode_kernel<3, 1>, st_decode_kernel<3, 2>, st_decode_kernel<3, 3>},
+      {st_decode_kernel<4, 1>, st_decode_kernel<4, 2>, st_decode_kernel<4, 3>},
+  };
+  if (n_objs < 1 || n_objs > 4 || ch < 1 || ch > 3) return nullptr;
+  return kernels[n_objs - 1][ch - 1];
 }
 
 }  // namespace
 
-// Launches one variant of the decoder on `stream`. Variant 0 is the kernel,
-// for 1..4 objects and 1..3 channels. The measurement variants, each one
-// design choice away from it, are built for the main path's 2 objects and
-// 3 channels only:
-//   1 bulk_store     each warp's slab stored from a shared-memory tile with
-//                    one bulk copy (the TMA's non-tensor form)
-//   2 vector_store   the tile stored with 16-byte stores by every lane
-//   3 store_only     a constant through bulk_store's stores: the floor
-//   4 inline_taps    y taps computed per pixel, no per-warp table
-//   5 no_walk        both x-interpolated rows recomputed every row
-//   6 no_store       the decoder without its stores
-//   7, 8             slabs of 4 and 16 rows instead of 8
-//   9 fast_math      __expf and approximate division in the softmax
-//   10 prologue_only the launch and the prologue alone
-//   11 launch_only   the launch alone
-// Returns a CUDA error code, 0 on success. The caller checks shapes, types
-// and limits (1 <= n_objs <= 4, 1 <= ch <= 3, shared memory within the
-// card's; for the tiled stores, rows of img*ch floats a multiple of 4 and
-// out 16-byte aligned).
-extern "C" int st_decode_forward_variant(const float* pos,
-                                         const float* tmpl_raw,
-                                         const float* cont_raw,
-                                         const float* background, float* out,
-                                         int n, int img, int tmpl, int n_objs,
-                                         int ch, float sigma, int variant,
-                                         void* stream) {
-  if (n == 0) return 0;
-  const Params p{pos, tmpl_raw, cont_raw, background, out,
-                 n, img, tmpl, 0, sigma};
-  const auto s = (cudaStream_t)stream;
-  if (variant == 0) {
-    switch (n_objs) {
-      case 1: return launch_kernel<1>(p, ch, s);
-      case 2: return launch_kernel<2>(p, ch, s);
-      case 3: return launch_kernel<3>(p, ch, s);
-      case 4: return launch_kernel<4>(p, ch, s);
-      default: return (int)cudaErrorInvalidValue;
-    }
-  }
-  if (n_objs != 2 || ch != 3) return (int)cudaErrorInvalidValue;
-  switch (variant) {
-    case 1: return launch<2, 3, kBulk, kFull>(p, s);
-    case 2: return launch<2, 3, kVector, kFull>(p, s);
-    case 3: return launch<2, 3, kBulk, kStoreOnly>(p, s);
-    case 4: return launch<2, 3, kDirect, kInlineTaps>(p, s);
-    case 5: return launch<2, 3, kDirect, kNoWalk>(p, s);
-    case 6: return launch<2, 3, kDirect, kNoStore>(p, s);
-    case 7: return launch<2, 3, kDirect, kFull>(p, s, 4);
-    case 8: return launch<2, 3, kDirect, kFull>(p, s, 16);
-    case 9: return launch<2, 3, kDirect, kFastMath>(p, s);
-    case 10: return launch<2, 3, kDirect, kPrologueOnly>(p, s);
-    case 11: return launch<2, 3, kDirect, kLaunchOnly>(p, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+// Sets the kernel up for one shape on the current device: raises its
+// dynamic shared-memory limit to what the shape needs, if it is lower (a
+// shape set up earlier may need more), and writes to *slots how many of its
+// blocks the device runs at once. Called once per device and shape, before
+// st_decode_forward. Returns a CUDA error code, 0 on success.
+extern "C" int st_decode_configure(int img, int tmpl, int n_objs, int ch,
+                                   int* slots) {
+  const Kernel kernel = kernel_for(n_objs, ch);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  const int smem = shared_bytes(img, tmpl, n_objs, ch);
+  cudaFuncAttributes attr;
+  int device, sms, per_sm;
+  cudaError_t err;
+  if ((err = cudaFuncGetAttributes(&attr, (const void*)kernel)) !=
+      cudaSuccess)
+    return (int)err;
+  if (attr.maxDynamicSharedSizeBytes < smem &&
+      (err = cudaFuncSetAttribute(
+           (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+           smem)) != cudaSuccess)
+    return (int)err;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    device)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, (const void*)kernel, kThreads, smem)) != cudaSuccess)
+    return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  *slots = per_sm * sms;
+  return 0;
 }
 
-// The kernel: launches the decoder on `stream`, as above.
+// Launches the decoder on `stream`: a grid of at most `slots` blocks (from
+// st_decode_configure for this shape), each warp walking its share of the
+// slabs. Returns a CUDA error code, 0 on success. The caller checks shapes,
+// types and limits (1 <= n_objs <= 4, 1 <= ch <= 3, shared memory within
+// the card's).
 extern "C" int st_decode_forward(const float* pos, const float* tmpl_raw,
                                  const float* cont_raw,
                                  const float* background, float* out, int n,
                                  int img, int tmpl, int n_objs, int ch,
-                                 float sigma, void* stream) {
-  return st_decode_forward_variant(pos, tmpl_raw, cont_raw, background, out,
-                                   n, img, tmpl, n_objs, ch, sigma, 0,
-                                   stream);
+                                 float sigma, int slots, void* stream) {
+  if (n == 0) return 0;
+  const Kernel kernel = kernel_for(n_objs, ch);
+  if (kernel == nullptr || slots < 1) return (int)cudaErrorInvalidValue;
+  Params p{pos, tmpl_raw, cont_raw, background, out,
+           n, img, tmpl, slab_rows(img, n_objs), sigma};
+  const long units = (long)n * ((img + p.rows - 1) / p.rows);
+  const int grid = units < slots ? (int)units : slots;
+  void* args[] = {&p};
+  return (int)cudaLaunchKernel((const void*)kernel, dim3(grid),
+                               dim3(kThreads), args,
+                               shared_bytes(img, tmpl, n_objs, ch),
+                               (cudaStream_t)stream);
 }

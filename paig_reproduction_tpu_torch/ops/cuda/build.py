@@ -25,7 +25,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _loaded: dict = {}
 
 
-def _nvcc() -> str:
+def nvcc() -> str:
+    """Path of the CUDA compiler."""
     cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
     path = os.path.join(cuda_home, "bin", "nvcc")
     if os.path.exists(path):
@@ -42,62 +43,49 @@ def sources() -> list:
     return sorted(f[:-3] for f in os.listdir(CSRC_DIR) if f.endswith(".cu"))
 
 
-def library_path(src: str) -> str:
-    """Where the build of the CUDA source at path `src` goes."""
-    stem = os.path.splitext(os.path.basename(src))[0]
-    with open(src, "rb") as f:
+def library_path(name: str) -> str:
+    with open(os.path.join(CSRC_DIR, name + ".cu"), "rb") as f:
         digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"lib{stem}-{digest.hexdigest()[:16]}.so")
+    return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 
-def build_files(srcs) -> dict:
-    """Compile the CUDA sources at paths `srcs`, one ``nvcc`` each, all
-    started together. Returns {path: (seconds, compiler log)}; the log holds
-    ``ptxas``'s registers and shared memory for each kernel. Raises if any
-    compile fails."""
+def build(names=None) -> dict:
+    """Compile the named sources (default: all), one ``nvcc`` each, all
+    started together. Returns {name: (seconds, compiler log)}; the log
+    holds ``ptxas``'s registers and shared memory for each kernel. Raises
+    if any compile fails."""
+    names = sources() if names is None else list(names)
     os.makedirs(BUILD_DIR, exist_ok=True)
-    nvcc = _nvcc()
+    nvcc_path = nvcc()
     t0 = time.perf_counter()
     jobs = {}
-    for src in srcs:
-        out = library_path(src)
+    for name in names:
+        out = library_path(name)
         tmp = f"{out}.{os.getpid()}.tmp"
-        jobs[src] = (subprocess.Popen([nvcc, *NVCC_FLAGS, "-o", tmp, src],
-                                      stdout=subprocess.PIPE,
-                                      stderr=subprocess.STDOUT, text=True),
-                     tmp, out)
+        cmd = [nvcc_path, *NVCC_FLAGS, "-o", tmp,
+               os.path.join(CSRC_DIR, name + ".cu")]
+        jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True),
+                      tmp, out)
     results, failed = {}, []
-    for src, (proc, tmp, out) in jobs.items():
+    for name, (proc, tmp, out) in jobs.items():
         log, _ = proc.communicate()
         if proc.returncode:
-            failed.append(f"nvcc failed for {src}:\n{log}")
+            failed.append(f"nvcc failed for {name}.cu:\n{log}")
             continue
         os.replace(tmp, out)
-        results[src] = (time.perf_counter() - t0, log)
+        results[name] = (time.perf_counter() - t0, log)
     if failed:
         raise RuntimeError("\n".join(failed))
     return results
 
 
-def build(names=None) -> dict:
-    """Compile the named sources of ``csrc/`` (default: all) as
-    ``build_files`` does. Returns {name: (seconds, compiler log)}."""
-    names = sources() if names is None else list(names)
-    results = build_files([os.path.join(CSRC_DIR, n + ".cu") for n in names])
-    return {n: results[os.path.join(CSRC_DIR, n + ".cu")] for n in names}
-
-
-def load_file(src: str) -> ctypes.CDLL:
-    """The library built from the CUDA source at path `src`, compiled first
-    if no build of its current text exists."""
-    if src not in _loaded:
-        path = library_path(src)
-        if not os.path.exists(path):
-            build_files([src])
-        _loaded[src] = ctypes.CDLL(path)
-    return _loaded[src]
-
-
 def load(name: str) -> ctypes.CDLL:
-    """The library built from ``csrc/<name>.cu``."""
-    return load_file(os.path.join(CSRC_DIR, name + ".cu"))
+    """The library built from ``csrc/<name>.cu``, compiled first if no
+    build of the current source exists."""
+    if name not in _loaded:
+        path = library_path(name)
+        if not os.path.exists(path):
+            build([name])
+        _loaded[name] = ctypes.CDLL(path)
+    return _loaded[name]

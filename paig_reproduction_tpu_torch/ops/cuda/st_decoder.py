@@ -30,26 +30,11 @@ LAUNCHES = 0
 # The kernel keeps per-pixel colour sums for at most MAX_CH channels and the
 # warped values of at most MAX_OBJS objects in registers, and stages the
 # planes, the background and its tables in the shared memory one block may
-# use on an H100 (227 KB). A block is WARPS warps; a warp decodes slabs of
-# at most SLAB_ROWS rows.
+# use on an H100 (227 KB). A block is WARPS warps.
 MAX_CH = 3
 MAX_OBJS = 4
 WARPS = 32
-SLAB_ROWS = 8
 MAX_SHARED_BYTES = 227 * 1024
-
-# The kernel's measurement variants (csrc/st_decoder.cu,
-# st_decode_forward_variant, which says what each one changes): each is one
-# design choice away from the kernel (0) and built for the main path's 2
-# objects and 3 channels only. Only chip measurements launch them.
-VARIANTS = {"kernel": 0, "bulk_store": 1, "vector_store": 2,
-            "store_only": 3, "inline_taps": 4, "no_walk": 5, "no_store": 6,
-            "slab_rows_4": 7, "slab_rows_16": 8, "fast_math": 9,
-            "prologue_only": 10, "launch_only": 11}
-# Variants that store each warp's slab from a shared-memory tile.
-TILED = ("bulk_store", "vector_store", "store_only")
-# Variants that write no output.
-WRITE_NOTHING = ("no_store", "prologue_only", "launch_only")
 
 
 def st_decode_plain(assets: DecoderAssets, pos: torch.Tensor,
@@ -59,37 +44,30 @@ def st_decode_plain(assets: DecoderAssets, pos: torch.Tensor,
 
 
 @functools.cache
-def _forward_fn():
-    fn = build.load("st_decoder").st_decode_forward_variant
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+def _lib():
+    lib = build.load("st_decoder")
+    lib.st_decode_configure.argtypes = [ctypes.c_int] * 4 + [
+        ctypes.POINTER(ctypes.c_int)]
+    lib.st_decode_configure.restype = ctypes.c_int
+    lib.st_decode_forward.argtypes = (
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    lib.st_decode_forward.restype = ctypes.c_int
+    return lib
 
 
-def slab_rows(cfg: DecoderConfig) -> int:
-    """Output rows of a slab, the unit one warp decodes: one y-table row
-    per lane and object."""
-    return min(cfg.img_hw[0], SLAB_ROWS, 32 // cfg.n_objs)
-
-
-def shared_bytes(cfg: DecoderConfig, tiled: bool = False) -> int:
+def shared_bytes(cfg: DecoderConfig) -> int:
     """Dynamic shared memory of one block (csrc/st_decoder.cu,
     shared_bytes): the planes as one float4 per texel, the background, each
     warp's 32-row y table of float4s, the raw planes as the prologue copies
-    them, one base coordinate a row and, for a tiled store, each warp's
-    slab tile."""
+    them and one base coordinate a row."""
     img, t, o, ch = cfg.img_hw[0], cfg.tmpl_size, cfg.n_objs, cfg.conv_ch
-    floats = (4 * o * t * t + -(-img * img * ch // 4) * 4 + WARPS * 32 * 4
-              + o * t * t * (1 + ch) + img)
-    if tiled:
-        floats += WARPS * slab_rows(cfg) * img * ch
-    return 4 * floats
+    return 4 * (4 * o * t * t + -(-img * img * ch // 4) * 4 + WARPS * 32 * 4
+                + o * t * t * (1 + ch) + img)
 
 
-def check_limits(cfg: DecoderConfig, tiled: bool = False):
-    """Raises ValueError for a configuration the kernel (or, with `tiled`,
-    a tiled-store variant) does not take."""
+def check_limits(cfg: DecoderConfig):
+    """Raises ValueError for a configuration the kernel does not take."""
     h, w = cfg.img_hw
     o, ch = cfg.n_objs, cfg.conv_ch
     if h != w:
@@ -98,13 +76,26 @@ def check_limits(cfg: DecoderConfig, tiled: bool = False):
         raise ValueError(f"the kernel takes 1..{MAX_CH} channels, got {ch}")
     if not 1 <= o <= MAX_OBJS:
         raise ValueError(f"the kernel takes 1..{MAX_OBJS} objects, got {o}")
-    if tiled and (w * ch * 4) % 16:
-        raise ValueError(f"a row of {w}x{ch} floats is not a multiple of 16 "
-                         f"bytes, which a tiled store needs")
-    if shared_bytes(cfg, tiled) > MAX_SHARED_BYTES:
-        raise ValueError(f"{shared_bytes(cfg, tiled)} bytes of shared "
-                         f"memory for {cfg} exceed the {MAX_SHARED_BYTES} a "
-                         f"block may use")
+    if shared_bytes(cfg) > MAX_SHARED_BYTES:
+        raise ValueError(f"{shared_bytes(cfg)} bytes of shared memory for "
+                         f"{cfg} exceed the {MAX_SHARED_BYTES} a block may "
+                         f"use")
+
+
+@functools.cache
+def _slots(device: int, cfg: DecoderConfig) -> int:
+    """Checks `cfg` against the kernel's limits and sets the kernel up for
+    it on a device, once: its shared-memory limit, and how many of its
+    blocks the device runs at once (returned)."""
+    check_limits(cfg)
+    slots = ctypes.c_int()
+    with torch.cuda.device(device):
+        err = _lib().st_decode_configure(cfg.img_hw[0], cfg.tmpl_size,
+                                         cfg.n_objs, cfg.conv_ch,
+                                         ctypes.byref(slots))
+    if err:
+        raise RuntimeError(f"st_decode_configure failed: CUDA error {err}")
+    return slots.value
 
 
 def _check(assets: DecoderAssets, pos: torch.Tensor, cfg: DecoderConfig):
@@ -127,54 +118,27 @@ def _check(assets: DecoderAssets, pos: torch.Tensor, cfg: DecoderConfig):
             raise ValueError(f"{name} must be contiguous")
 
 
-def _run(assets: DecoderAssets, pos: torch.Tensor, cfg: DecoderConfig,
-         variant: str, out=None) -> torch.Tensor:
+def launch(assets: DecoderAssets, pos: torch.Tensor,
+           cfg: DecoderConfig) -> torch.Tensor:
+    """One kernel launch on the current stream: frames [N, H, W, C]."""
+    global LAUNCHES
     _check(assets, pos, cfg)
-    tiled = variant in TILED
-    check_limits(cfg, tiled)
-    h, w = cfg.img_hw
-    shape = (pos.shape[0], h, w, cfg.conv_ch)
-    if out is None:
-        out = torch.empty(shape, dtype=pos.dtype, device=pos.device)
-    elif (out.device != pos.device or out.dtype != torch.float32
-          or tuple(out.shape) != shape or not out.is_contiguous()):
-        raise ValueError(f"out must be a contiguous float32 {shape} tensor "
-                         f"on {pos.device}")
-    if tiled and out.data_ptr() % 16:
-        raise ValueError("out must be 16-byte aligned for a tiled store")
+    slots = _slots(pos.device.index, cfg)
+    img, t, o, ch = cfg.img_hw[0], cfg.tmpl_size, cfg.n_objs, cfg.conv_ch
+    out = torch.empty((pos.shape[0], img, img, ch), dtype=pos.dtype,
+                      device=pos.device)
     with torch.cuda.device(pos.device):
-        err = _forward_fn()(
+        err = _lib().st_decode_forward(
             pos.data_ptr(), assets.template.data_ptr(),
             assets.contents.data_ptr(), assets.background.data_ptr(),
-            out.data_ptr(), pos.shape[0], h, cfg.tmpl_size, cfg.n_objs,
-            cfg.conv_ch, float(cfg.log_sig), VARIANTS[variant],
+            out.data_ptr(), pos.shape[0], img, t, o, ch,
+            float(cfg.log_sig), slots,
             torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"st_decode_forward launch failed: CUDA error "
                            f"{err}")
-    return out
-
-
-def launch(assets: DecoderAssets, pos: torch.Tensor, cfg: DecoderConfig,
-           out=None) -> torch.Tensor:
-    """One kernel launch on the current stream: frames [N, H, W, C],
-    written into `out` if given (a contiguous float32 tensor)."""
-    global LAUNCHES
-    out = _run(assets, pos, cfg, "kernel", out)
     LAUNCHES += 1
     return out
-
-
-def launch_variant(assets: DecoderAssets, pos: torch.Tensor,
-                   cfg: DecoderConfig, variant: str,
-                   out=None) -> torch.Tensor:
-    """One launch of a measurement variant (see VARIANTS) at 2 objects and
-    3 channels; not counted in LAUNCHES. "store_only" writes a constant
-    frame."""
-    if variant != "kernel" and (cfg.n_objs, cfg.conv_ch) != (2, 3):
-        raise ValueError("the measurement variants are built for 2 objects "
-                         "and 3 channels only")
-    return _run(assets, pos, cfg, variant, out)
 
 
 class _STDecode(torch.autograd.Function):

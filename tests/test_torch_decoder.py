@@ -179,27 +179,24 @@ def test_kernel_limits_take_every_task(img, tmpl, n_objs, n, ch):
 
 def test_kernel_shared_bytes_of_the_main_path():
     # 8 KB of float4 planes, the 12 KB background, 32 warps' 512-byte y
-    # tables, the 8 KB of raw planes and 32 row coordinates at 32/16/2/3;
-    # the tiled-store variants add 32 warps' 8-row slab tiles.
+    # tables, the 8 KB of raw planes and 32 row coordinates at 32/16/2/3.
     cfg = _torch_cfg(32, 16, 2, 3)
     assert tkernel.shared_bytes(cfg) == 44 * 1024 + 4 * 32
-    tkernel.check_limits(cfg, tiled=True)
-    assert tkernel.shared_bytes(cfg, tiled=True) == 140 * 1024 + 4 * 32
 
 
-@pytest.mark.parametrize("img_hw,tmpl,n_objs,ch,tiled,match", [
-    ((31, 31), 15, 2, 3, True, "16 bytes"),
-    ((128, 128), 64, 4, 3, False, "shared memory"),
-    ((32, 32), 16, 5, 3, False, "objects"),
-    ((32, 32), 16, 2, 4, False, "channels"),
-    ((32, 36), 16, 2, 3, False, "square"),
-    ((256, 256), 16, 1, 1, False, "shared memory"),
+@pytest.mark.parametrize("img_hw,tmpl,n_objs,ch,match", [
+    ((128, 128), 64, 4, 3, "shared memory"),
+    ((32, 32), 16, 5, 3, "objects"),
+    ((32, 32), 16, 0, 3, "objects"),
+    ((32, 32), 16, 2, 4, "channels"),
+    ((32, 36), 16, 2, 3, "square"),
+    ((256, 256), 16, 1, 1, "shared memory"),
 ])
-def test_kernel_limits_reject(img_hw, tmpl, n_objs, ch, tiled, match):
+def test_kernel_limits_reject(img_hw, tmpl, n_objs, ch, match):
     cfg = tdec.DecoderConfig(img_hw=img_hw, tmpl_size=tmpl, n_objs=n_objs,
                              conv_ch=ch, log_sig=1.0)
     with pytest.raises(ValueError, match=match):
-        tkernel.check_limits(cfg, tiled)
+        tkernel.check_limits(cfg)
 
 
 def test_kernel_limits_take_odd_widths_without_a_tile():
