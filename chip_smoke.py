@@ -15,7 +15,7 @@ Phases, each printing its elapsed seconds:
              CUDA events) at each task's train shape beside the plain
              version's, its bound and its share of the bound, and at the
              main path's shapes the store-only floor (csrc/store_floor.cu:
-             the decoder's grid and direct stores writing a constant);
+             the decoder's grid writing a constant in full-line stores);
 4. train   - the port's CLI entry trains spring_color for 2 epochs at B=100
              on the tracked dataset, with every kernel's launch count set to
              0 just before and read just after; losses must be finite and
@@ -161,7 +161,7 @@ def decoder_inputs(n, img, tmpl, n_objs, ch, seed, template_logit=None):
 
 def store_floor_fn():
     """csrc/store_floor.cu's entry: out [N, img, img, ch] <- 0.5 through the
-    decoder's grid and stores."""
+    decoder's grid, in 16-byte stores."""
     import torch
     from paig_reproduction_tpu_torch.ops.cuda import build
     fn = build.load("store_floor").store_floor
