@@ -24,10 +24,10 @@ Phases, each printing its elapsed seconds:
              share of its bound and store-only floor.
 
 With ``--parent OLD/csrc/st_decoder.cu`` (an earlier source of the kernel
-with PR 4's C entry, ``st_decode_forward`` without ``slots``) the kernel
-phase also builds that source and times it beside the kernel at every timed
-shape, in the order earlier, kernel, kernel, earlier, each held to the plain
-version first.
+whose C entry, ``st_decode_forward``, takes no ``slots`` argument) the
+kernel phase also builds that source and times it beside the kernel at
+every timed shape, in the order earlier, kernel, kernel, earlier, each held
+to the plain version first.
 
 The last line is {"ok": true, "device": {...}}. Any failure raises, and the
 script exits non-zero without that line; without a CUDA device it fails at
