@@ -6,22 +6,34 @@ Run from the repository root on a machine with a CUDA card:
 
 Phases, each printing its elapsed seconds:
 
-1. device  - the card's name and power limit (nvidia-smi);
-2. build   - nvcc builds every CUDA source of the port (ptxas registers and
-             shared memory are printed);
-3. kernel  - each kernel against its plain PyTorch version on the card, at
-             the main path's shapes, the other tasks' shapes and the edges
-             of its grid, with its device time (CUDA graph replays between
-             CUDA events) at each task's train shape beside the plain
-             version's, its bound and its share of the bound, and at the
-             main path's shapes the store-only floor (csrc/store_floor.cu:
-             the decoder's grid writing a constant in full-line stores);
-4. train   - the port's CLI entry trains spring_color for 2 epochs at B=100
-             on the tracked dataset, with every kernel's launch count set to
-             0 just before and read just after; losses must be finite and
-             fall, and every decode must have gone through the kernel;
-5. kernels - one JSON line with every kernel's launches, error, times,
-             share of its bound and store-only floor.
+1. device     - the card's name and power limit (nvidia-smi), and whether
+                PIL and matplotlib import here (a record: the port uses
+                neither);
+2. build      - nvcc builds every CUDA source of the port (ptxas registers
+                and shared memory are printed);
+3. kernel     - each kernel against its plain PyTorch version on the card,
+                at the main path's shapes, the other tasks' shapes and the
+                edges of its grid, with its device time (CUDA graph replays
+                between CUDA events) at each task's train shape and at the
+                seq-30 test phase's N=2600 beside the plain version's, its
+                bound and its share of the bound, and at the main path's
+                shapes the store-only floor (csrc/store_floor.cu: the
+                decoder's grid writing a constant in full-line stores);
+4. train      - the port's CLI entry trains spring_color for 2 epochs at
+                B=100 on the tracked dataset, saves model.ckpt and runs the
+                seq-30 test phase, with every kernel's launch count set to
+                0 just before and read just after; losses must be finite
+                and fall, every decode of both phases must have gone
+                through the kernel, and every artifact must be there;
+5. test_mode  - ``--test_mode --ckpt_dir=<the run>`` alone, timed: the
+                seq-30 phase's wall time and its own launch count;
+6. checkpoint - the run's model.ckpt restored into a fresh trainer at
+                seq 12: its valid eval and its next train step must equal
+                the finished trainer's within 1e-6 relative;
+7. step       - the median host time of a synchronized train step;
+8. kernels    - one JSON line with every kernel's launches, error, times,
+                share of its bound and store-only floor, at the main
+                path's N=1000 and at N=2600.
 
 With ``--parent OLD/csrc/st_decoder.cu`` (an earlier source of the kernel
 whose C entry, ``st_decode_forward``, takes no ``slots`` argument) the
@@ -43,6 +55,7 @@ import os
 import re
 import statistics
 import subprocess
+import sys
 import tempfile
 import time
 from contextlib import contextmanager
@@ -60,6 +73,15 @@ PEAK_F32_FLOP_PER_S = 67e12
 FWD_ATOL = 2e-5
 # Gradient tolerance: the backward is the plain version's autograd in both.
 GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-5
+# A restored trainer against the one that saved: the same float32
+# operations on the same values, with deterministic cuDNN algorithms.
+RESTORE_RTOL = 1e-6
+# The run's artifacts (the JAX package's set).
+ARTIFACTS = ("log.txt", "code.zip", "model.ckpt", "outputs.npz",
+             "extra_outputs.npz", "example0.jpg", "templates.jpg")
+TRAIN_ARGS = ["--task=spring_color", "--base_lr=6e-4",
+              "--autoencoder_loss=3.0", "--color", "--print_interval=1",
+              "--device=cuda"]
 
 
 @contextmanager
@@ -71,19 +93,18 @@ def phase(name):
 
 
 # (N, img, T, o, ch): the main path's train (N=1000) and eval (N=800)
-# decodes at 32/16/2/3; the other tasks' train decodes at B=100
-# (3bp_color's 16 frames a sequence; 64x64 mnist_spring_color's 10, in one
-# and three channels, 64/32/2/3 being the largest block the kernel stages);
-# small N of those shapes; and the edges of the persistent grid: one frame,
-# an N that the grid does not divide, and the seq-30 test graph's 26
-# rollout frames x B=100 (several slabs a warp).
+# decodes at 32/16/2/3, and the seq-30 test phase's 26 rollout frames x
+# B=100 (N=2600, several slabs a warp); the other tasks' train decodes at
+# B=100 (3bp_color's 16 frames a sequence; 64x64 mnist_spring_color's 10,
+# in one and three channels, 64/32/2/3 being the largest block the kernel
+# stages); small N of those shapes; and the edges of the persistent grid:
+# one frame and an N that the grid does not divide.
 TIMED_SHAPES = [(1000, 32, 16, 2, 3), (800, 32, 16, 2, 3),
-                (1600, 36, 18, 3, 3), (1000, 64, 32, 2, 1),
-                (1000, 64, 32, 2, 3)]
+                (2600, 32, 16, 2, 3), (1600, 36, 18, 3, 3),
+                (1000, 64, 32, 2, 1), (1000, 64, 32, 2, 3)]
 ST_DECODE_SHAPES = TIMED_SHAPES + [
     (37, 36, 18, 3, 3), (19, 64, 32, 2, 1), (5, 32, 16, 2, 1),
-    (3, 64, 32, 2, 3), (1, 32, 16, 2, 3), (1001, 32, 16, 2, 3),
-    (2600, 32, 16, 2, 3)]
+    (3, 64, 32, 2, 3), (1, 32, 16, 2, 3), (1001, 32, 16, 2, 3)]
 # The kernel's slab height at 2 objects (csrc/st_decoder.cu, slab_rows).
 SLAB_ROWS = 8
 
@@ -305,57 +326,233 @@ def check_st_decode(parent=None):
 
 
 def read_log(path):
-    train, evals = [], []
+    """(train losses, every eval loss, the seq-30 test phase's losses by
+    name or None)."""
+    train, evals, test30 = [], [], None
     with open(path) as f:
         for line in f:
             m = re.search(r"train - iter=(\d+) train_loss=(\S+)", line)
             if m:
                 train.append(float(m.group(2)))
-            m = re.search(r"(valid|test) - epoch=\d+ (.*)", line)
+            m = re.search(r"(valid|test) - epoch=(\d+) (.*)", line)
             if m:
-                evals.extend(float(kv.split("=")[1])
-                             for kv in m.group(2).split())
-    return train, evals
+                values = {k: float(v) for k, v in
+                          (kv.split("=") for kv in m.group(3).split())}
+                evals.extend(values.values())
+                if m.group(1) == "test" and m.group(2) == "0":
+                    test30 = values
+    return train, evals, test30
+
+
+def eval_batches(n, batch_size):
+    """Batches of one eval of a split of n sequences: a split under 100 is
+    one batch, a larger one its full batches."""
+    return 1 if n < 100 else max(1, n // batch_size)
+
+
+def expected_launches(steps, valid_n, test_n, test30_n, batch_size, epochs):
+    """Kernel launches of one CLI run (eval every epoch): two decodes
+    (reconstructions and rollout) per train step, per eval batch and per
+    visualization forward, which follows every valid and test eval: the
+    valid evals before training and after each epoch, the test eval after
+    training and the seq-30 phase's test eval."""
+    valid_evals = 1 + epochs
+    evals = (valid_evals * eval_batches(valid_n, batch_size)
+             + eval_batches(test_n, batch_size)
+             + eval_batches(test30_n, batch_size))
+    return 2 * (steps + evals + valid_evals + 2)
+
+
+@contextmanager
+def cli_run():
+    """Removes the log handlers a CLI run adds, so a later run in this
+    process logs to its own log.txt only."""
+    import logging
+    logger = logging.getLogger("paig")
+    handlers = list(logger.handlers)
+    try:
+        yield
+    finally:
+        for h in set(logger.handlers) - set(handlers):
+            logger.removeHandler(h)
+            h.close()
+
+
+def check_artifacts(save_dir, required=ARTIFACTS):
+    """Every artifact in `required` and an animation gif are there and
+    non-empty; each JPEG starts with FF D8 and ends with FF D9, each GIF
+    starts with GIF89a."""
+    names = sorted(os.listdir(save_dir))
+    gifs = [n for n in names if re.fullmatch(r"animation\d+\.gif", n)]
+    if not gifs:
+        raise AssertionError(f"no animation gif in {names}")
+    for name in tuple(required) + tuple(gifs):
+        if name not in names or not os.path.getsize(
+                os.path.join(save_dir, name)):
+            raise AssertionError(f"artifact {name} is missing or empty")
+    for name in names:
+        with open(os.path.join(save_dir, name), "rb") as f:
+            data = f.read()
+        if name.endswith(".jpg") and not (data[:2] == b"\xff\xd8"
+                                          and data[-2:] == b"\xff\xd9"):
+            raise AssertionError(f"{name} is not a JPEG")
+        if name.endswith(".gif") and data[:6] != b"GIF89a":
+            raise AssertionError(f"{name} is not a GIF89a")
+    print("artifacts: " + ", ".join(
+        f"{n} {os.path.getsize(os.path.join(save_dir, n))} B"
+        for n in names))
 
 
 def train(batch_size=100, epochs=2):
-    """Drive the port's CLI entry on spring_color; returns
-    (launch count, the Trainer)."""
+    """Drive the port's CLI entry on spring_color: train, save, the seq-30
+    test phase and the artifacts. Returns (launch count, the training
+    Trainer, its save_dir, the seq-30 losses)."""
     import torch
     from paig_reproduction_tpu_torch import cli
     from paig_reproduction_tpu_torch.ops.cuda import st_decoder as sd
 
     save_dir = os.path.join(tempfile.mkdtemp(prefix="paig_smoke_"), "run")
-    argv = ["--task=spring_color", "--base_lr=6e-4", "--autoencoder_loss=3.0",
-            "--color", f"--batch_size={batch_size}", f"--epochs={epochs}",
-            "--print_interval=1", f"--data_dir={DATA_DIR}",
-            f"--save_dir={save_dir}", "--device=cuda"]
-    sd.LAUNCHES = 0
-    trainer = cli.main(argv)
-    torch.cuda.synchronize()
-    launches = sd.LAUNCHES
+    argv = TRAIN_ARGS + [f"--batch_size={batch_size}", f"--epochs={epochs}",
+                         f"--data_dir={DATA_DIR}", f"--save_dir={save_dir}"]
+    with cli_run():
+        sd.LAUNCHES = 0
+        trainer, test_trainer = cli.main(argv)
+        torch.cuda.synchronize()
+        launches = sd.LAUNCHES
 
-    train_losses, eval_losses = read_log(os.path.join(save_dir, "log.txt"))
+    train_losses, eval_losses, test30 = read_log(
+        os.path.join(save_dir, "log.txt"))
     print(f"train losses: first {train_losses[0]:.4f}, last "
           f"{train_losses[-1]:.4f} over {len(train_losses)} steps")
+    print(f"seq-30 test phase: {test30}")
+    if test30 is None or not all(math.isfinite(v) for v in test30.values()):
+        raise AssertionError("no finite 'test - epoch=0' line")
     if not all(math.isfinite(v) for v in train_losses + eval_losses):
         raise AssertionError("a logged loss is not finite")
     if not train_losses[-1] < train_losses[0]:
         raise AssertionError("the last train_loss is not below the first")
-    valid_n = trainer.valid_iterator.num_examples
-    test_n = trainer.test_iterator.num_examples
-    eval_batches = ((1 + epochs) * (valid_n // batch_size)
-                    + test_n // batch_size)
-    needed = 2 * (trainer.step + eval_batches)
-    print(f"st_decode launches: {launches} (train steps {trainer.step}, "
-          f"eval batches {eval_batches}, needed >= {needed})")
-    if launches < needed:
-        raise AssertionError("the main path did not decode through the "
-                             "kernel on every decode")
     if trainer.step != epochs * (trainer.train_iterator.num_examples
                                  // batch_size):
         raise AssertionError(f"unexpected step count {trainer.step}")
-    return launches, trainer
+    if test_trainer.step != trainer.step:
+        raise AssertionError("the seq-30 phase did not restore the run's "
+                             "checkpoint")
+    needed = expected_launches(
+        trainer.step, trainer.valid_iterator.num_examples,
+        trainer.test_iterator.num_examples,
+        test_trainer.test_iterator.num_examples, batch_size, epochs)
+    print(f"st_decode launches: {launches} (train steps {trainer.step}, "
+          f"expected {needed} with the evals, the seq-30 phase and the "
+          f"visualizations)")
+    if launches != needed:
+        raise AssertionError("the main path did not decode through the "
+                             "kernel on every decode")
+    check_artifacts(save_dir)
+    return launches, trainer, save_dir, test30
+
+
+def run_test_mode(save_dir, test30, batch_size=100):
+    """``--test_mode --ckpt_dir=save_dir`` alone: its wall time and launch
+    count; its losses agree with the training run's seq-30 phase (the same
+    checkpoint and split, the batches grouped differently) within 1e-5
+    relative."""
+    import torch
+    from paig_reproduction_tpu_torch import cli
+    from paig_reproduction_tpu_torch.ops.cuda import st_decoder as sd
+
+    out_dir = os.path.join(os.path.dirname(save_dir), "test_mode")
+    argv = TRAIN_ARGS + [f"--batch_size={batch_size}", "--test_mode",
+                         f"--ckpt_dir={save_dir}", f"--data_dir={DATA_DIR}",
+                         f"--save_dir={out_dir}"]
+    with cli_run():
+        sd.LAUNCHES = 0
+        t0 = time.perf_counter()
+        _, test_trainer = cli.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = sd.LAUNCHES
+    _, _, losses = read_log(os.path.join(out_dir, "log.txt"))
+    needed = 2 * (eval_batches(test_trainer.test_iterator.num_examples,
+                               batch_size) + 1)
+    print(f"--test_mode: {seconds:.3f} s wall, st_decode launches "
+          f"{launches} (expected {needed}), {losses}")
+    if launches != needed:
+        raise AssertionError("--test_mode did not decode through the kernel")
+    for k, v in test30.items():
+        if not abs(losses[k] - v) <= 1e-5 * abs(v):
+            raise AssertionError(f"--test_mode {k}={losses[k]} against the "
+                                 f"run's {v}")
+    # A test-mode run saves no checkpoint of its own.
+    check_artifacts(out_dir, [n for n in ARTIFACTS if n != "model.ckpt"])
+    return seconds
+
+
+def check_checkpoint(trainer, save_dir, batch_size=100, epochs=2):
+    """Restore the run's model.ckpt into a fresh Trainer at seq 12 (other
+    initial weights): its valid eval, on the same batches, and one train
+    step on fixed indices equal the finished trainer's within
+    RESTORE_RTOL."""
+    import numpy as np
+    import torch
+    from paig_reproduction_tpu_torch import cli
+    from paig_reproduction_tpu_torch.data.iterators import get_iterators
+    from paig_reproduction_tpu_torch.models import PhysicsNet
+    from paig_reproduction_tpu_torch.train.trainer import Trainer
+
+    m = trainer.model
+    fresh = Trainer(PhysicsNet(
+        task=m.task, cell_type=m.cell_type, seq_len=m.seq_len,
+        input_steps=m.input_steps, pred_steps=m.pred_steps,
+        autoencoder_loss=m.autoencoder_loss, color=m.conv_ch == 3,
+        input_size=m.img_size ** 2,
+        generator=torch.Generator().manual_seed(1)), device="cuda")
+    fresh.get_data(get_iterators(
+        os.path.join(DATA_DIR, cli.TASK_TABLE[m.task][0]), conv=True))
+    n_train = fresh.train_iterator.num_examples
+    fresh.build_optimizer(6e-4, "rmsprop", True, epochs=epochs,
+                          steps_per_epoch=n_train // batch_size)
+    with cli_run():
+        fresh.initialize_graph(
+            os.path.join(os.path.dirname(save_dir), "restored"),
+            use_ckpt=True, ckpt_dir=save_dir)
+        if fresh.step != trainer.step:
+            raise AssertionError(f"restored step {fresh.step}, saved "
+                                 f"{trainer.step}")
+        # The same batches: each iterator shuffles its own order in place.
+        fresh.valid_iterator.indices = trainer.valid_iterator.indices.copy()
+        evals = []
+        for t in (trainer, fresh):
+            np.random.seed(0)
+            evals.append(t.eval_performance(batch_size, type="valid"))
+            t.flush_artifacts()
+
+    def rel(a, b):
+        return float(abs(a - b) / max(abs(b), 1e-30))
+
+    worst = max(rel(evals[1][k], evals[0][k]) for k in evals[0])
+    print(f"restored valid eval {evals[1]}, saver's {evals[0]}: max "
+          f"relative difference {worst:.3e} (tolerance {RESTORE_RTOL})")
+    if not worst <= RESTORE_RTOL:
+        raise AssertionError("the restored eval differs")
+
+    idx = np.random.RandomState(0).choice(n_train, batch_size, replace=False)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        steps = [t.train_step(idx) for t in (trainer, fresh)]
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    worst_loss = max(rel(float(steps[1][k]), float(steps[0][k]))
+                     for k in steps[0])
+    saved = trainer.model.state_dict()
+    worst_param = max(
+        float((t - saved[n]).abs().max() / saved[n].abs().max().clamp_min(
+            1e-30)) for n, t in fresh.model.state_dict().items())
+    print(f"next step after restore: max relative difference of the losses "
+          f"{worst_loss:.3e}, of the parameters {worst_param:.3e} "
+          f"(tolerance {RESTORE_RTOL})")
+    if not (worst_loss <= RESTORE_RTOL and worst_param <= RESTORE_RTOL):
+        raise AssertionError("the step after restore differs")
 
 
 def step_ms(trainer, batch_size=100, steps=20):
@@ -395,6 +592,10 @@ def main(argv=None):
              "--format=csv,noheader"],
             capture_output=True, text=True, check=True).stdout.strip()
         print(smi)
+        for module in ("PIL", "matplotlib"):
+            found = subprocess.run([sys.executable, "-c", f"import {module}"],
+                                   capture_output=True).returncode == 0
+            print(f"{module} imports on this machine: {found}")
         kind = torch.cuda.get_device_name(0)
         print(f"torch {torch.__version__} cuda {torch.version.cuda} "
               f"device {kind} count {torch.cuda.device_count()}")
@@ -412,12 +613,22 @@ def main(argv=None):
         max_err, timings = check_st_decode(parent)
 
     with phase("train"):
-        launches, trainer = train()
+        launches, trainer, save_dir, test30 = train()
+
+    with phase("test_mode"):
+        seconds = run_test_mode(save_dir, test30)
+        print(f"seq-30 test phase alone: {seconds:.3f} s on {smi}")
+
+    with phase("checkpoint"):
+        check_checkpoint(trainer, save_dir)
+
+    with phase("step"):
         ms = step_ms(trainer)
         print(f"median train step: {ms:.2f} ms at B=100 on {smi}")
 
     with phase("kernels"):
         main_path = timings[TIMED_SHAPES[0]]
+        seq30 = timings[2600, 32, 16, 2, 3]
         print(json.dumps({"kernels": [{
             "name": "st_decode",
             "route": "cuda",
@@ -432,6 +643,9 @@ def main(argv=None):
             "library_ms": None,
             "share_of_bound": main_path["share_of_bound"],
             "store_floor_ms": main_path["store_floor_ms"],
+            "seq30_n2600": {k: seq30[k] for k in (
+                "ms", "plain_ms", "bound_ms", "share_of_bound",
+                "store_floor_ms")},
         }]}))
 
     print(json.dumps({"ok": True, "device": {

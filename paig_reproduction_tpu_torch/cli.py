@@ -5,6 +5,12 @@
 is not ported yet raises ``NotImplementedError`` when it is given a value
 other than its default; the model raises for its own extension fields.
 Dataset files come from ``TASK_TABLE`` under ``--data_dir``.
+
+A run trains (unless ``--test_mode``), saving ``model.ckpt`` in
+``--save_dir``, then rebuilds the model at the task's test sequence length
+and evaluates the test split of the longer-sequence file from save_dir's
+checkpoint, or from ``--ckpt_dir``'s under ``--test_mode``, as the JAX
+package's CLI does.
 """
 from __future__ import annotations
 
@@ -327,11 +333,10 @@ TASK_TABLE = {
 }
 
 
-# Flags of trainer features not ported yet (checkpoints, test mode,
-# profiling, multi-device, the single-command recipes, the watchdog and
+# Flags of trainer features not ported yet (profiling, multi-device, the
+# single-command recipes, the watchdog, resuming the remaining epochs and
 # per-group learning rates); each must keep its default.
 UNSUPPORTED_FLAGS = (
-    "use_ckpt", "ckpt_dir", "save_every_n_epochs", "test_mode",
     "profile_dir", "debug_nans", "n_model_shards", "physics_lr_mult",
     "native_loader", "grad_clip", "bg_lr_mult", "aux_warmup_epochs",
     "aux_on_recons", "fit_physics_every", "fit_physics_after",
@@ -343,8 +348,9 @@ UNSUPPORTED_FLAGS = (
 
 
 def main(argv=None):
-    """Train a model as the JAX package's CLI does (without its checkpoint
-    and test-mode phases). Returns the Trainer."""
+    """Train and test a model as the JAX package's CLI does. Returns
+    ``(trainer, test_trainer)``: the training phase's Trainer (None under
+    ``--test_mode``) and the seq-``test_seq_len`` test phase's."""
     parser = build_parser()
     args = parser.parse_args(argv)
     for name in UNSUPPORTED_FLAGS:
@@ -370,50 +376,72 @@ def main(argv=None):
     from paig_reproduction_tpu_torch.models.registry import get_model
     from paig_reproduction_tpu_torch.train.trainer import Trainer
 
-    (data_file, _test_data_file, cell_type, seq_len, _test_seq_len,
+    (data_file, test_data_file, cell_type, seq_len, test_seq_len,
      input_steps, pred_steps, input_size) = TASK_TABLE[args.task]
     data_root = args.data_dir or os.path.join(
         os.path.dirname(os.path.dirname(os.path.realpath(__file__))),
         "data", "datasets")
 
-    model = get_model(args.model)(
-        task=args.task,
-        cell_type=args.cell_type if args.cell_type else cell_type,
-        seq_len=seq_len, input_steps=input_steps, pred_steps=pred_steps,
-        autoencoder_loss=args.autoencoder_loss, alt_vel=args.alt_vel,
-        color=args.color, input_size=input_size,
-        encoder_type=args.encoder_type, decoder_type=args.decoder_type,
-        decoder_backend=args.decoder_backend,
-        cell_substeps=args.cell_substeps,
-        generator=torch.Generator().manual_seed(args.seed),
-        template_center_loss=args.template_center_loss,
-        coarse_loss=args.coarse_loss, vel_anchor=args.vel_anchor,
-        pos_consistency=args.pos_consistency,
-        learn_frame_offset=args.learn_frame_offset,
-        recons_warmup=args.recons_warmup,
-        init_state_fit=args.init_state_fit,
-        refine_enc_pos=args.refine_enc_pos,
-        refine_recons_pos=args.refine_recons_pos,
-        attn_overlap_loss=args.attn_overlap_loss,
-        active_slots=args.active_slots, slot_gate_soft=args.slot_gate_soft,
-        template_init=args.template_init,
-        reference_quirks=args.reference_quirks,
-        compute_dtype=args.compute_dtype)
+    def build(seq):
+        return get_model(args.model)(
+            task=args.task,
+            cell_type=args.cell_type if args.cell_type else cell_type,
+            seq_len=seq, input_steps=input_steps, pred_steps=pred_steps,
+            autoencoder_loss=args.autoencoder_loss, alt_vel=args.alt_vel,
+            color=args.color, input_size=input_size,
+            encoder_type=args.encoder_type, decoder_type=args.decoder_type,
+            decoder_backend=args.decoder_backend,
+            cell_substeps=args.cell_substeps,
+            generator=torch.Generator().manual_seed(args.seed),
+            template_center_loss=args.template_center_loss,
+            coarse_loss=args.coarse_loss, vel_anchor=args.vel_anchor,
+            pos_consistency=args.pos_consistency,
+            learn_frame_offset=args.learn_frame_offset,
+            recons_warmup=args.recons_warmup,
+            init_state_fit=args.init_state_fit,
+            refine_enc_pos=args.refine_enc_pos,
+            refine_recons_pos=args.refine_recons_pos,
+            attn_overlap_loss=args.attn_overlap_loss,
+            active_slots=args.active_slots,
+            slot_gate_soft=args.slot_gate_soft,
+            template_init=args.template_init,
+            reference_quirks=args.reference_quirks,
+            compute_dtype=args.compute_dtype)
 
-    data_iterators = get_iterators(os.path.join(data_root, data_file),
+    trainer = None
+    if not args.test_mode:
+        data_iterators = get_iterators(os.path.join(data_root, data_file),
+                                       conv=True,
+                                       datapoints=args.datapoints)
+        trainer = Trainer(build(seq_len), device=args.device)
+        trainer.get_data(data_iterators)
+        steps_per_epoch = max(
+            1, data_iterators[0].num_examples // args.batch_size)
+        trainer.build_optimizer(args.base_lr, args.optimizer,
+                                args.anneal_lr, epochs=args.epochs,
+                                steps_per_epoch=steps_per_epoch)
+        trainer.initialize_graph(args.save_dir, args.use_ckpt,
+                                 args.ckpt_dir)
+        trainer.train_model(args.epochs, args.batch_size,
+                            args.save_every_n_epochs,
+                            args.eval_every_n_epochs, args.print_interval,
+                            args.debug)
+
+    # The test phase: the same weights at the longer test sequence length.
+    # After training it scores save_dir's final checkpoint; --ckpt_dir
+    # routes the restore only under --test_mode.
+    data_iterators = get_iterators(os.path.join(data_root, test_data_file),
                                    conv=True, datapoints=args.datapoints)
-    trainer = Trainer(model, device=args.device)
-    trainer.get_data(data_iterators)
-    steps_per_epoch = max(
-        1, data_iterators[0].num_examples // args.batch_size)
-    trainer.build_optimizer(args.base_lr, args.optimizer, args.anneal_lr,
-                            epochs=args.epochs,
-                            steps_per_epoch=steps_per_epoch)
-    trainer.initialize_graph(args.save_dir)
-    trainer.train_model(args.epochs, args.batch_size,
-                        args.eval_every_n_epochs, args.print_interval,
-                        args.debug)
-    return trainer
+    test_trainer = Trainer(build(test_seq_len), device=args.device)
+    test_trainer.get_data(data_iterators)
+    test_trainer.build_optimizer(args.base_lr, args.optimizer,
+                                 args.anneal_lr)
+    test_trainer.initialize_graph(args.save_dir, True,
+                                  args.ckpt_dir if args.test_mode else "")
+    test_trainer.train_model(0, args.batch_size, args.save_every_n_epochs,
+                             args.eval_every_n_epochs, args.print_interval,
+                             args.debug)
+    return trainer, test_trainer
 
 
 if __name__ == "__main__":

@@ -1,5 +1,5 @@
 """Weight converter: the JAX package's flax ``params`` tree -> the port's
-``state_dict``.
+``state_dict``, and a JAX checkpoint tree -> the port's checkpoint.
 
 The tree is given as nested dicts of numpy arrays (``jax.device_get`` of
 the params), so this module needs numpy only. Layout changes:
@@ -13,6 +13,11 @@ Module names map as ``ShallowUNet_0`` -> ``unet``, ``TorchConv_<i>`` ->
 ``convs.<i>`` (flax's inner ``Conv_0`` is dropped) and ``TorchDense_<i>``
 -> ``dense.<i>``; the top-level names (``encoder``, ``velocity_encoder``,
 ``var_net_*``) are the same in both packages.
+
+The port never reads an orbax checkpoint itself: a user (or a test)
+restores the JAX ``model.ckpt`` with ``orbax.checkpoint``, converts the
+tree with ``flax_checkpoint_to_port`` and writes the result with
+``train.checkpoint.save_checkpoint``.
 """
 from __future__ import annotations
 
@@ -60,4 +65,44 @@ def flax_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
         modules = [_module_name(s) for s in path[:-1] if s != "Conv_0"]
         name, array = _leaf(path[-1], np.asarray(value))
         out[".".join(modules + [name])] = torch.from_numpy(array.copy())
+    return out
+
+
+def _find_mapping(tree, key):
+    """The first mapping stored under ``key`` in a tree of mappings and
+    sequences, or None."""
+    if isinstance(tree, Mapping):
+        if isinstance(tree.get(key), Mapping):
+            return tree
+        children = tree.values()
+    elif isinstance(tree, (list, tuple)):
+        children = tree
+    else:
+        return None
+    for child in children:
+        found = _find_mapping(child, key)
+        if found is not None:
+            return found
+    return None
+
+
+def flax_checkpoint_to_port(tree: Mapping) -> dict:
+    """The port's checkpoint dict (``train/checkpoint.py``) from the numpy
+    tree an orbax restore of a JAX ``model.ckpt`` gives: ``params``,
+    ``step`` and, where present, ``opt_state``, ``epoch`` and
+    ``total_epochs_done``.
+
+    optax RMSprop's ``nu`` becomes each parameter's ``nu``, the port's
+    RMSprop state. The state of the other optimizers (Adam's ``mu``/``nu``
+    with its bias-correction count, momentum's trace) is left out, so a
+    restore keeps their initial state and logs it."""
+    optimizer = {}
+    rms = _find_mapping(tree.get("opt_state"), "nu")
+    if rms is not None and "mu" not in rms:
+        optimizer = {name: {"nu": t}
+                     for name, t in flax_to_state_dict(rms["nu"]).items()}
+    out = {"model": flax_to_state_dict(tree["params"]),
+           "optimizer": {"state": optimizer}}
+    for key in ("step", "epoch", "total_epochs_done"):
+        out[key] = int(np.asarray(tree.get(key, 0)))
     return out

@@ -137,25 +137,31 @@ class PhysicsNet(nn.Module):
         self.decoder_cfg = DecoderConfig(img_hw=(img, img), tmpl_size=t,
                                          n_objs=o, conv_ch=ch, log_sig=1.0)
 
-    def forward(self, inp: torch.Tensor
+    def forward(self, inp: torch.Tensor, with_extras: bool = False
                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """inp: [B, T, C, H, W] float32 in [0, 1].
 
         Returns (output_seq [B, pred+extrap, C, H, W], aux dict with
-        recons_out [B, input+pred, C, H, W], enc_pos and pos_vel_seq)."""
+        recons_out [B, input+pred, C, H, W], enc_pos and pos_vel_seq).
+        With ``with_extras`` aux also holds ``extras``, the visualization
+        tensors in the JAX package's layouts (``extra_outputs.npz``); they
+        come from one more decode of the encoder's positions through the
+        plain path, while the outputs still go through ``decoder_backend``.
+        """
         b = inp.shape[0]
         img, ch = self.img_size, self.conv_ch
         t_in = self.input_steps + self.pred_steps
         cfg = self.decoder_cfg
 
+        template_raw = self.var_net_template()
+        contents_raw = self.var_net_content()
         assets = DecoderAssets(
-            template=self.var_net_template(),
-            contents=self.var_net_content(),
+            template=template_raw, contents=contents_raw,
             background=torch.sigmoid(self.var_net_background()))
 
         # --- encode input+pred frames (batch and time flattened) ----------
         frames = inp[:, :t_in].reshape(b * t_in, ch, img, img)
-        enc_pos_flat, _, _ = self.encoder(frames)
+        enc_pos_flat, enc_masks, masked_objs = self.encoder(frames)
 
         # --- autoencoder path ---------------------------------------------
         recons_flat, _ = st_decode(assets, enc_pos_flat, cfg,
@@ -197,6 +203,19 @@ class PhysicsNet(nn.Module):
         aux = {"recons_out": recons_out.permute(0, 1, 4, 2, 3),
                "enc_pos": enc_pos,
                "pos_vel_seq": pos_vel_seq}
+        if with_extras:
+            _, dec_extras = st_decode(assets, enc_pos_flat, cfg,
+                                      return_extras=True)
+            aux["extras"] = {
+                "contents": contents_raw.permute(0, 3, 1, 2),
+                "templates": template_raw[:, None],
+                "background_content": assets.background.permute(
+                    2, 0, 1)[None],
+                "transf_contents": dec_extras["transf_contents"],
+                "transf_masks": dec_extras["transf_masks"],
+                "enc_masks": enc_masks.permute(0, 2, 3, 1),
+                "masked_objs": masked_objs.permute(0, 2, 3, 1),
+            }
         return output_seq.permute(0, 1, 4, 2, 3), aux
 
 

@@ -1,12 +1,13 @@
 """The port and chip_smoke.py import nothing of JAX and nothing of the JAX
-package: the machine with the card has no JAX."""
+package: the machine with the card has no JAX. Nor do they import orbax,
+PIL or matplotlib, which it may lack too: the port writes its own images."""
 import ast
 import os
 
 import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax",
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "PIL", "matplotlib",
              "paig_reproduction_tpu")
 
 

@@ -96,9 +96,9 @@ def test_frozen_params_are_not_trained():
     assert len(trained) == 1 and trained[0] is params["log_g"]
 
 
-def _tiny_iterators(tmp_path, n_train=8, n_eval=4):
-    with np.load(DATASET) as d:
-        path = tmp_path / "spring_color" / os.path.basename(DATASET)
+def _tiny_iterators(tmp_path, n_train=8, n_eval=4, dataset=DATASET):
+    with np.load(dataset) as d:
+        path = tmp_path / "spring_color" / os.path.basename(dataset)
         path.parent.mkdir(parents=True, exist_ok=True)
         np.savez(path, train_x=d["train_x"][:n_train],
                  valid_x=d["valid_x"][:n_eval], test_x=d["test_x"][:n_eval])
@@ -196,8 +196,8 @@ def test_task_table_equals_jax():
     assert cli.TASK_TABLE == jax_cli.TASK_TABLE
 
 
-@pytest.mark.parametrize("flag", ["--use_ckpt", "--test_mode",
-                                  "--save_every_n_epochs=1",
+@pytest.mark.parametrize("flag", ["--profile_dir=x", "--n_model_shards=2",
+                                  "--aux_on_recons=1.0",
                                   "--grad_clip=1.0", "--discovery_restarts=2",
                                   "--watchdog_secs=60"])
 def test_unported_flags_raise(flag):
@@ -210,21 +210,34 @@ def test_initialize_graph_wipes_save_dir(tmp_path):
     save_dir.mkdir()
     (save_dir / "stale.txt").write_text("old")
     trainer = Trainer(PhysicsNet(**KW), device="cpu")
+    trainer.build_optimizer(6e-4)
     trainer.initialize_graph(str(save_dir))
     assert save_dir.is_dir() and not any(save_dir.iterdir())
-    with pytest.raises(NotImplementedError):
-        trainer.initialize_graph(str(save_dir), use_ckpt=True)
+    # With use_ckpt the save_dir is kept and its checkpoint restored.
+    trainer.step = 7
+    trainer.save()
+    (save_dir / "stale.txt").write_text("old")
+    fresh = Trainer(PhysicsNet(**dict(KW, seq_len=30)), device="cpu")
+    fresh.build_optimizer(6e-4)
+    fresh.initialize_graph(str(save_dir), use_ckpt=True)
+    assert (save_dir / "stale.txt").exists() and fresh.step == 7
+    for name, t in fresh.model.state_dict().items():
+        torch.testing.assert_close(t, trainer.model.state_dict()[name],
+                                   rtol=0, atol=0)
 
 
-def test_cli_trains_on_cpu(tmp_path):
-    """The slice's command, at B=4 on 8 sequences: log.txt holds the JAX
-    package's k=v lines, losses are finite and fall."""
+def test_cli_trains_on_cpu(tmp_path, monkeypatch):
+    """The slice's command, at B=4 on 8 sequences (and 4 of the seq-30
+    file for the test phase): log.txt holds the JAX package's k=v lines,
+    losses are finite and fall."""
     _tiny_iterators(tmp_path)
+    _tiny_iterators(tmp_path, dataset=DATASET.replace("_sl12_", "_sl30_"))
+    monkeypatch.setenv("PAIG_VIZ_EXAMPLES", "1")
     save_dir = tmp_path / "run"
     logger = logging.getLogger("paig")
     handlers = list(logger.handlers)
     try:
-        trainer = cli.main([
+        trainer, _ = cli.main([
             "--task=spring_color", "--base_lr=6e-4",
             "--autoencoder_loss=3.0", "--color", "--batch_size=4",
             "--epochs=2", "--print_interval=1", f"--data_dir={tmp_path}",
@@ -240,7 +253,7 @@ def test_cli_trains_on_cpu(tmp_path):
     assert len(losses) == 4 and np.all(np.isfinite(losses))
     assert losses[-1] < losses[0]
     for prefix in ("valid - epoch=0 ", "valid - epoch=1 ", "valid - epoch=2 ",
-                   "test - epoch=2 "):
+                   "test - epoch=2 ", "test - epoch=0 "):
         line = next(l for l in log.splitlines() if prefix in l)
         keys = [kv.split("=")[0] for kv in line.split(prefix)[1].split()]
         assert keys == ["eval_extrap_loss", "eval_pred_loss",
