@@ -19,6 +19,11 @@ Phases, each printing its elapsed seconds:
                 bound and its share of the bound, and at the main path's
                 shapes the store-only floor (csrc/store_floor.cu: the
                 decoder's grid writing a constant in full-line stores);
+   kernel st_decode jvp - torch.func.jvp through the kernel's wrapper at
+                the main path's N=1000, with a tangent on the positions and
+                one on all four inputs, against the plain decode's
+                torch.func.jvp: the primal within 2e-5, the tangent within
+                1e-4 of its largest value; the kernel's count must rise;
 4. train      - the port's CLI entry trains spring_color for 2 epochs at
                 B=100 on the tracked dataset, saves model.ckpt and runs the
                 seq-30 test phase, with every kernel's launch count set to
@@ -31,9 +36,21 @@ Phases, each printing its elapsed seconds:
                 seq 12: its valid eval and its next train step must equal
                 the finished trainer's within 1e-6 relative;
 7. step       - the median host time of a synchronized train step;
-8. kernels    - one JSON line with every kernel's launches, error, times,
+8. recipe     - the single-command spring recipe
+                (benchmarks/spring_one5_test_log.txt's flags) through the
+                CLI entry at full width (B=100, the tracked files), its
+                depth cut so that every hook fires: two discovery arms of
+                one epoch, the aux trigger, physics self-identification, one
+                auto-rescue, evals and the seq-30 phase with the Gauss-Newton
+                state fit and position refinement. Every decode must go
+                through the kernel, the refinement's renders included
+                (counted apart); then a resume with --use_ckpt must bring
+                the rescue and trigger state back. It prints the recipe's
+                train step and an eval batch's time with and without the
+                enhancers;
+9. kernels    - one JSON line with every kernel's launches, error, times,
                 share of its bound and store-only floor, at the main
-                path's N=1000 and at N=2600.
+                path's N=1000 and at N=2600, and the recipe's launches.
 
 With ``--parent OLD/csrc/st_decoder.cu`` (an earlier source of the kernel
 whose C entry, ``st_decode_forward``, takes no ``slots`` argument) the
@@ -82,6 +99,22 @@ ARTIFACTS = ("log.txt", "code.zip", "model.ckpt", "outputs.npz",
 TRAIN_ARGS = ["--task=spring_color", "--base_lr=6e-4",
               "--autoencoder_loss=3.0", "--color", "--print_interval=1",
               "--device=cuda"]
+# The single-command spring recipe (benchmarks/spring_one5_test_log.txt)
+# with its depth cut so that every hook fires once in a short run: two
+# discovery arms of one epoch, the aux trigger on the first eval, a physics
+# fit every epoch, a rescue from epoch 2 whatever the recons.
+REFINE_ITERS = 4
+RECIPE_ARGS = TRAIN_ARGS + [
+    "--epochs=4", "--discovery_restarts=2", "--discovery_epochs=1",
+    "--discovery_recons_ok=4.0", "--aux_on_recons=1e9", "--fit_physics_every=1", "--auto_rescue=2",
+    "--rescue_recons=0", "--max_rescues=1", "--eval_every_n_epochs=1",
+    "--pos_consistency=1.0", "--vel_anchor=1.0", "--learn_frame_offset",
+    "--init_state_fit=3", f"--refine_recons_pos={REFINE_ITERS}",
+    "--enhancers_eval_only", "--save_every_n_epochs=1"]
+# The tangent's tolerance, relative to its largest value: through the
+# kernel's wrapper the tangent is the plain decode's JVP of the same inputs,
+# so the two differ only where the card's sums run in another order.
+JVP_RTOL = 1e-4
 
 
 @contextmanager
@@ -136,6 +169,23 @@ def time_ms(fn, runs=21, reps=10):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
+
+
+def eager_ms(fn, calls=20):
+    """Time of one eager call of `fn` (ms), host work included: CUDA events
+    around `calls` calls after 3 warm-up calls."""
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / calls
 
 
 def st_decode_bound(n, img, tmpl, n_objs, ch):
@@ -325,6 +375,61 @@ def check_st_decode(parent=None):
     return max_err, timings
 
 
+def check_st_decode_jvp():
+    """torch.func.jvp through the kernel's wrapper at the main path's N=1000
+    against the plain decode's, with a tangent on the positions (the
+    Gauss-Newton refinement's case) and one on all four inputs. Returns
+    (the largest primal error, the largest relative tangent error, the
+    kernel path's and the plain path's jvp time in ms)."""
+    import torch
+    from paig_reproduction_tpu_torch.models.decoder import DecoderAssets
+    from paig_reproduction_tpu_torch.ops.cuda import st_decoder as sd
+
+    assets, pos, cfg = decoder_inputs(1000, 32, 16, 2, 3, seed=4)
+    g = torch.Generator("cuda").manual_seed(5)
+    tangents = [torch.randn(x.shape, device="cuda", generator=g)
+                for x in (*assets, pos)]
+
+    def through(fn, argnums):
+        def f(*xs):
+            full = [*assets, pos]
+            for i, x in zip(argnums, xs):
+                full[i] = x
+            return fn(DecoderAssets(*full[:3]), full[3], cfg)
+        primals = tuple([*assets, pos][i] for i in argnums)
+        return lambda: torch.func.jvp(
+            f, primals, tuple(tangents[i] for i in argnums))
+
+    worst_primal = worst_tangent = 0.0
+    times = {}
+    for name, argnums in (("pos", (3,)), ("all four", (0, 1, 2, 3))):
+        before = sd.LAUNCHES
+        out, tan = through(sd.st_decode_fused, argnums)()
+        torch.cuda.synchronize()
+        if sd.LAUNCHES != before + 1:
+            raise AssertionError("the jvp did not launch the kernel once")
+        ref_out, ref_tan = through(sd.st_decode_plain, argnums)()
+        err = (out - ref_out).abs().max().item()
+        rel = ((tan - ref_tan).abs().max()
+               / ref_tan.abs().max().clamp_min(1e-30)).item()
+        print(f"st_decode jvp, tangent on {name}: primal max_abs_err "
+              f"{err:.3e} (tolerance {FWD_ATOL}), tangent max error "
+              f"{rel:.3e} of its largest value (tolerance {JVP_RTOL})")
+        if not (err <= FWD_ATOL and rel <= JVP_RTOL):
+            raise AssertionError("the kernel's jvp disagrees with the plain "
+                                 "decode's")
+        worst_primal = max(worst_primal, err)
+        worst_tangent = max(worst_tangent, rel)
+        if name == "pos":
+            times = {"ms": eager_ms(through(sd.st_decode_fused, argnums)),
+                     "plain_ms": eager_ms(through(sd.st_decode_plain,
+                                                  argnums))}
+            print(f"st_decode jvp on pos, N=1000 (eager calls, host work "
+                  f"included): through the kernel {times['ms']:.3f} ms, "
+                  f"plain {times['plain_ms']:.3f} ms")
+    return worst_primal, worst_tangent, times
+
+
 def read_log(path):
     """(train losses, every eval loss, the seq-30 test phase's losses by
     name or None)."""
@@ -500,12 +605,9 @@ def check_checkpoint(trainer, save_dir, batch_size=100, epochs=2):
     from paig_reproduction_tpu_torch.train.trainer import Trainer
 
     m = trainer.model
-    fresh = Trainer(PhysicsNet(
-        task=m.task, cell_type=m.cell_type, seq_len=m.seq_len,
-        input_steps=m.input_steps, pred_steps=m.pred_steps,
-        autoencoder_loss=m.autoencoder_loss, color=m.conv_ch == 3,
-        input_size=m.img_size ** 2,
-        generator=torch.Generator().manual_seed(1)), device="cuda")
+    fresh = Trainer(PhysicsNet(**m.config,
+                               generator=torch.Generator().manual_seed(1)),
+                    device="cuda")
     fresh.get_data(get_iterators(
         os.path.join(DATA_DIR, cli.TASK_TABLE[m.task][0]), conv=True))
     n_train = fresh.train_iterator.num_examples
@@ -573,6 +675,148 @@ def step_ms(trainer, batch_size=100, steps=20):
     return statistics.median(times)
 
 
+def recipe_decodes(train_steps, eval_batches, forwards, refine_iters):
+    """Kernel launches of a recipe run: two decodes (reconstructions and
+    rollout) per train step, whose model runs without the enhancers; and per
+    eval batch and per other forward of the model with them (the
+    visualizations, the physics fit's encodings and its rendered offsets)
+    the same two decodes and one render per Gauss-Newton iteration of the
+    position refinement (its cu2 tangents ride as a batch axis, so one
+    launch an iteration). Returns (launches, the refinement's share)."""
+    refine = refine_iters * (eval_batches + forwards)
+    return 2 * (train_steps + eval_batches + forwards) + refine, refine
+
+
+def recipe_counts(log_path, arms, arm_epochs, loop_epochs, steps_per_epoch,
+                  valid_batches, test_batches, test30_batches):
+    """(train steps, eval batches, other forwards) of a recipe run with an
+    eval every epoch, from its flags and its log: the arms' steps and
+    scoring evals, the loop's steps, its valid evals (before the loop and
+    after each epoch), the test eval and the seq-30 phase's; a visualization
+    forward after each valid and test eval; and five forwards per physics
+    fit that ran (four batches of encodings and the rendered offsets)."""
+    with open(log_path) as f:
+        fits = sum(1 for line in f if "- fit_physics: " in line
+                   and "first accepted fit" not in line)
+    steps = (arms * arm_epochs + loop_epochs) * steps_per_epoch
+    valid_evals = 1 + loop_epochs
+    batches = (arms * valid_batches + valid_evals * valid_batches
+               + test_batches + test30_batches)
+    return steps, batches, valid_evals + 2 + 5 * fits
+
+
+def recipe(batch_size=100):
+    """The single-command spring recipe through the CLI entry at full
+    width, with every hook asserted from log.txt and every decode counted;
+    then a resume from its checkpoint. Returns the phase's numbers."""
+    import numpy as np
+    import torch
+    from paig_reproduction_tpu_torch import cli
+    from paig_reproduction_tpu_torch.data.iterators import gather_batch
+    from paig_reproduction_tpu_torch.models import physics_net
+    from paig_reproduction_tpu_torch.ops.cuda import st_decoder as sd
+
+    save_dir = os.path.join(tempfile.mkdtemp(prefix="paig_recipe_"), "run")
+    argv = RECIPE_ARGS + [f"--batch_size={batch_size}",
+                          f"--data_dir={DATA_DIR}", f"--save_dir={save_dir}"]
+    refine = physics_net.refine_positions
+    refine_launches = 0
+
+    def counted_refine(*args, **kwargs):
+        nonlocal refine_launches
+        before = sd.LAUNCHES
+        out = refine(*args, **kwargs)
+        refine_launches += sd.LAUNCHES - before
+        return out
+
+    physics_net.refine_positions = counted_refine
+    try:
+        with cli_run():
+            sd.LAUNCHES = 0
+            t0 = time.perf_counter()
+            trainer, test_trainer = cli.main(argv)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = sd.LAUNCHES
+    finally:
+        physics_net.refine_positions = refine
+
+    log_path = os.path.join(save_dir, "log.txt")
+    with open(log_path) as f:
+        log = f.read()
+    for needle in ("discovery restart arm 1/2", "discovery restart arm 2/2",
+                   "discovery restarts: continuing from arm",
+                   "aux_on_recons trigger: ", "- fit_physics: ",
+                   "auto_rescue: epoch "):
+        if needle not in log:
+            raise AssertionError(f"the recipe's log has no {needle!r}")
+    print("recipe hooks in log.txt: " + "; ".join(
+        line.split(" - paig - ")[1] for line in log.splitlines()
+        if re.search(r"discovery restarts:|trigger|fit_physics|auto_rescue",
+                     line)))
+    train_losses, eval_losses, test30 = read_log(log_path)
+    if not all(math.isfinite(v) for v in train_losses + eval_losses):
+        raise AssertionError("a logged loss of the recipe is not finite")
+    if test30 is None or not all(math.isfinite(v) for v in test30.values()):
+        raise AssertionError("the recipe's seq-30 phase logged no finite "
+                             "'test - epoch=0' line")
+    if not (test_trainer.model.init_state_fit
+            and test_trainer.model.refine_recons_pos == REFINE_ITERS):
+        raise AssertionError("the seq-30 phase ran without the enhancers")
+    if trainer._rescue_count != 1 or not trainer._aux_triggered:
+        raise AssertionError("the rescue or the trigger did not fire")
+
+    spe = trainer.train_iterator.num_examples // batch_size
+    counts = recipe_counts(
+        log_path, arms=2, arm_epochs=1, loop_epochs=3, steps_per_epoch=spe,
+        valid_batches=eval_batches(trainer.valid_iterator.num_examples,
+                                   batch_size),
+        test_batches=eval_batches(trainer.test_iterator.num_examples,
+                                  batch_size),
+        test30_batches=eval_batches(
+            test_trainer.test_iterator.num_examples, batch_size))
+    needed, needed_refine = recipe_decodes(*counts, REFINE_ITERS)
+    print(f"recipe: {seconds:.3f} s wall; st_decode launches {launches} "
+          f"(expected {needed}: {counts[0]} train steps, {counts[1]} eval "
+          f"batches, {counts[2]} other forwards), of them in the "
+          f"Gauss-Newton refinement {refine_launches} (expected "
+          f"{needed_refine}); seq-30 phase {test30}")
+    if launches != needed or refine_launches != needed_refine:
+        raise AssertionError("the recipe did not decode through the kernel "
+                             "on every decode")
+    check_artifacts(save_dir)
+
+    # The recipe's train step, and an eval batch with and without the
+    # enhancers (valid sequences, no gradient).
+    step = step_ms(trainer)
+    idx = np.arange(batch_size)
+    batch = gather_batch(trainer._split_u8("valid"), idx)
+    with torch.no_grad():
+        eval_on = eager_ms(lambda: trainer._losses(batch), calls=10)
+        eval_off = eager_ms(lambda: trainer._losses(batch, trainer.train_net),
+                            calls=10)
+    print(f"recipe train step {step:.2f} ms; eval batch of {batch_size} "
+          f"with the enhancers {eval_on:.2f} ms, without {eval_off:.2f} ms")
+
+    # Resume: the rescue budget and the trigger come back, and the discovery
+    # arms are skipped.
+    with cli_run():
+        resumed, _ = cli.main(argv + ["--use_ckpt", "--epochs=1"])
+    if not (resumed._rescue_count == trainer._rescue_count
+            and resumed._rescue_step == trainer._rescue_step
+            and resumed._aux_triggered):
+        raise AssertionError("the resume lost the rescue or trigger state")
+    with open(log_path) as f:
+        if f.read().count("discovery restart arm 1/2") != 1:
+            raise AssertionError("the resume ran the discovery arms again")
+    print(f"resumed: rescue step {resumed._rescue_step}, rescues used "
+          f"{resumed._rescue_count}, aux trigger at step "
+          f"{resumed.aux_warmup_steps}")
+    return dict(launches=launches, refine_launches=refine_launches,
+                seconds=seconds, step_ms=step, eval_ms=eval_on,
+                eval_plain_ms=eval_off)
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--parent", default=None,
@@ -612,6 +856,9 @@ def main(argv=None):
     with phase("kernel st_decode"):
         max_err, timings = check_st_decode(parent)
 
+    with phase("kernel st_decode jvp"):
+        jvp_err, jvp_rel, jvp_times = check_st_decode_jvp()
+
     with phase("train"):
         launches, trainer, save_dir, test30 = train()
 
@@ -625,6 +872,12 @@ def main(argv=None):
     with phase("step"):
         ms = step_ms(trainer)
         print(f"median train step: {ms:.2f} ms at B=100 on {smi}")
+
+    with phase("recipe"):
+        rec = recipe()
+        print(f"recipe on {smi}: train step {rec['step_ms']:.2f} ms, eval "
+              f"batch {rec['eval_ms']:.2f} ms with the enhancers, "
+              f"{rec['eval_plain_ms']:.2f} ms without")
 
     with phase("kernels"):
         main_path = timings[TIMED_SHAPES[0]]
@@ -646,6 +899,10 @@ def main(argv=None):
             "seq30_n2600": {k: seq30[k] for k in (
                 "ms", "plain_ms", "bound_ms", "share_of_bound",
                 "store_floor_ms")},
+            "jvp": {"primal_max_abs_err": jvp_err,
+                    "tangent_max_rel_err": jvp_rel, **jvp_times},
+            "recipe_launches": rec["launches"],
+            "recipe_refine_launches": rec["refine_launches"],
         }]}))
 
     print(json.dumps({"ok": True, "device": {

@@ -7,7 +7,11 @@ other than its default; the model raises for its own extension fields.
 Dataset files come from ``TASK_TABLE`` under ``--data_dir``.
 
 A run trains (unless ``--test_mode``), saving ``model.ckpt`` in
-``--save_dir``, then rebuilds the model at the task's test sequence length
+``--save_dir``, with the single-command recipes as the JAX CLI wires them:
+``--discovery_restarts`` arms first (counted against ``--epochs``; ignored
+when resuming), then the epoch loop with the aux-loss staging, train-time
+physics self-identification and the auto-rescue surgery. It then rebuilds
+the model at the task's test sequence length
 and evaluates the test split of the longer-sequence file from save_dir's
 checkpoint, or from ``--ckpt_dir``'s under ``--test_mode``, as the JAX
 package's CLI does.
@@ -333,17 +337,12 @@ TASK_TABLE = {
 }
 
 
-# Flags of trainer features not ported yet (profiling, multi-device, the
-# single-command recipes, the watchdog, resuming the remaining epochs and
-# per-group learning rates); each must keep its default.
+# Flags of trainer features not ported yet (profiling, NaN debugging,
+# multi-device training, the native loader, the watchdog and resuming the
+# remaining epochs); each must keep its default.
 UNSUPPORTED_FLAGS = (
-    "profile_dir", "debug_nans", "n_model_shards", "physics_lr_mult",
-    "native_loader", "grad_clip", "bg_lr_mult", "aux_warmup_epochs",
-    "aux_on_recons", "fit_physics_every", "fit_physics_after",
-    "auto_rescue", "rescue_recons", "max_rescues", "rescue_disk_radius",
-    "rescue_seed_color", "watchdog_secs", "watchdog_floor_secs",
-    "resume_remaining_epochs", "discovery_restarts", "discovery_epochs",
-    "discovery_recons_ok", "enhancers_eval_only",
+    "profile_dir", "debug_nans", "n_model_shards", "native_loader",
+    "watchdog_secs", "watchdog_floor_secs", "resume_remaining_epochs",
 )
 
 
@@ -413,16 +412,42 @@ def main(argv=None):
         data_iterators = get_iterators(os.path.join(data_root, data_file),
                                        conv=True,
                                        datapoints=args.datapoints)
-        trainer = Trainer(build(seq_len), device=args.device)
+        trainer = Trainer(build(seq_len), device=args.device, seed=args.seed,
+                          enhancers_eval_only=args.enhancers_eval_only)
         trainer.get_data(data_iterators)
         steps_per_epoch = max(
             1, data_iterators[0].num_examples // args.batch_size)
         trainer.build_optimizer(args.base_lr, args.optimizer,
                                 args.anneal_lr, epochs=args.epochs,
-                                steps_per_epoch=steps_per_epoch)
+                                steps_per_epoch=steps_per_epoch,
+                                physics_lr_mult=args.physics_lr_mult,
+                                grad_clip=args.grad_clip,
+                                aux_warmup_epochs=args.aux_warmup_epochs,
+                                bg_lr_mult=args.bg_lr_mult)
+        trainer.fit_physics_every = args.fit_physics_every
+        trainer.fit_physics_after = args.fit_physics_after
+        trainer.auto_rescue = args.auto_rescue
+        trainer.rescue_recons = args.rescue_recons
+        trainer.rescue_disk_radius = args.rescue_disk_radius
+        trainer.rescue_seed_color = args.rescue_seed_color
+        trainer.max_rescues = args.max_rescues
+        if args.aux_on_recons > 0:
+            trainer.set_aux_trigger(args.aux_on_recons)
         trainer.initialize_graph(args.save_dir, args.use_ckpt,
                                  args.ckpt_dir)
-        trainer.train_model(args.epochs, args.batch_size,
+        remaining = args.epochs
+        if args.discovery_restarts > 0 and not args.use_ckpt:
+            # Counted against --epochs, leaving at least one normal epoch
+            # (and its final save).
+            arm_epochs = min(args.discovery_epochs, max(1, args.epochs - 1))
+            trainer.run_discovery_restarts(
+                args.batch_size, args.discovery_restarts, arm_epochs,
+                keep_going_below=args.discovery_recons_ok)
+            remaining = max(1, args.epochs - arm_epochs)
+        elif args.discovery_restarts > 0:
+            logger.info("discovery_restarts ignored: resuming from a "
+                        "checkpoint")
+        trainer.train_model(remaining, args.batch_size,
                             args.save_every_n_epochs,
                             args.eval_every_n_epochs, args.print_interval,
                             args.debug)

@@ -6,8 +6,8 @@ the params), so this module needs numpy only. Layout changes:
 
 * Dense ``kernel (in, out)`` -> ``weight (out, in)``;
 * Conv ``kernel (H, W, I, O)`` -> ``weight (O, I, H, W)``;
-* scalar leaves (``log_k``, ``log_equil``, ``log_g``, ``log_m``) keep
-  their names.
+* top-level leaves (``log_k``, ``log_equil``, ``log_g``, ``log_m``,
+  ``frame_offset``) keep their names.
 
 Module names map as ``ShallowUNet_0`` -> ``unet``, ``TorchConv_<i>`` ->
 ``convs.<i>`` (flax's inner ``Conv_0`` is dropped) and ``TorchDense_<i>``
@@ -59,48 +59,55 @@ def _leaf(name: str, value: np.ndarray):
 
 def flax_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
     """Convert a flax ``params`` tree of numpy arrays to a state_dict
-    (each tensor keeps its array's dtype)."""
+    (each tensor keeps its array's dtype). ``None`` leaves, the masked-out
+    leaves of an optax ``multi_transform`` branch, are left out."""
     out = {}
     for path, value in _flatten(params):
+        if value is None:
+            continue
         modules = [_module_name(s) for s in path[:-1] if s != "Conv_0"]
         name, array = _leaf(path[-1], np.asarray(value))
         out[".".join(modules + [name])] = torch.from_numpy(array.copy())
     return out
 
 
-def _find_mapping(tree, key):
-    """The first mapping stored under ``key`` in a tree of mappings and
-    sequences, or None."""
+def _find_mappings(tree, key):
+    """Every mapping that stores a mapping under ``key``, in a tree of
+    mappings and sequences."""
     if isinstance(tree, Mapping):
         if isinstance(tree.get(key), Mapping):
-            return tree
+            yield tree
+            return
         children = tree.values()
     elif isinstance(tree, (list, tuple)):
         children = tree
     else:
-        return None
+        return
     for child in children:
-        found = _find_mapping(child, key)
-        if found is not None:
-            return found
-    return None
+        yield from _find_mappings(child, key)
 
 
 def flax_checkpoint_to_port(tree: Mapping) -> dict:
     """The port's checkpoint dict (``train/checkpoint.py``) from the numpy
     tree an orbax restore of a JAX ``model.ckpt`` gives: ``params``,
     ``step`` and, where present, ``opt_state``, ``epoch`` and
-    ``total_epochs_done``.
+    ``total_epochs_done`` (the recipe state is not converted: a restore
+    starts it afresh).
 
     optax RMSprop's ``nu`` becomes each parameter's ``nu``, the port's
-    RMSprop state. The state of the other optimizers (Adam's ``mu``/``nu``
-    with its bias-correction count, momentum's trace) is left out, so a
-    restore keeps their initial state and logs it."""
+    RMSprop state. Under ``multi_transform`` (``--physics_lr_mult``,
+    ``--bg_lr_mult``) each branch holds ``nu`` for its own parameters; the
+    branches are merged, each parameter from the branch that trains it.
+    The state of the other optimizers (Adam's ``mu``/``nu`` with its
+    bias-correction count, momentum's trace) is left out, so a restore
+    keeps their initial state and logs it."""
     optimizer = {}
-    rms = _find_mapping(tree.get("opt_state"), "nu")
-    if rms is not None and "mu" not in rms:
-        optimizer = {name: {"nu": t}
-                     for name, t in flax_to_state_dict(rms["nu"]).items()}
+    for rms in _find_mappings(tree.get("opt_state"), "nu"):
+        if "mu" in rms:
+            optimizer = {}
+            break
+        optimizer.update({name: {"nu": t} for name, t in
+                          flax_to_state_dict(rms["nu"]).items()})
     out = {"model": flax_to_state_dict(tree["params"]),
            "optimizer": {"state": optimizer}}
     for key in ("step", "epoch", "total_epochs_done"):

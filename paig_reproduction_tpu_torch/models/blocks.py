@@ -103,13 +103,18 @@ class ConvolutionalEncoder(nn.Module):
     shared 3-layer MLP coordinate head that reads the masked frame in
     (H, W, C) order; the output is tanh * (W/2) + (W/2).
 
+    With ``0 < active_slots < n_objs`` only the first ``active_slots``
+    slots take part in the softmax: the others' logits become -1e6 (a hard
+    gate), or with ``slot_gate_soft > 0`` are lowered by that much.
+
     Input [N, C, H, W]. Returns (positions [N, n_objs*2] object-major,
     enc_masks [N, n_objs+1, H, W], masked_objs [n_objs*N, C, H, W]).
     """
 
     def __init__(self, input_hw, in_ch: int, n_objs: int = 2,
                  hidden_dim: int = 200, out_features: int = 2,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 active_slots: int = 0, slot_gate_soft: float = 0.0):
         super().__init__()
         height, width = input_hw
         if width >= 40:
@@ -119,6 +124,8 @@ class ConvolutionalEncoder(nn.Module):
         self.input_hw = tuple(input_hw)
         self.n_objs = n_objs
         self.out_features = out_features
+        self.active_slots = active_slots
+        self.slot_gate_soft = slot_gate_soft
         self.unet = ShallowUNet(in_ch, 8, n_objs, generator=generator)
         self.dense = nn.ModuleList([
             TorchDense(height * width * in_ch, hidden_dim, generator),
@@ -130,6 +137,12 @@ class ConvolutionalEncoder(nn.Module):
         height, width = self.input_hw
         o = self.n_objs
         logits = self.unet(inp)                                 # [N, o, H, W]
+        if 0 < self.active_slots < o:
+            gate = (torch.arange(o, device=logits.device)
+                    < self.active_slots)[None, :, None, None]
+            gated = (logits - self.slot_gate_soft if self.slot_gate_soft > 0
+                     else torch.full_like(logits, -1e6))
+            logits = torch.where(gate, logits, gated)
         ones = torch.ones((n, 1, height, width), dtype=logits.dtype,
                           device=logits.device)
         enc_masks = torch.softmax(torch.cat([logits, ones], dim=1), dim=1)
@@ -187,18 +200,28 @@ class VelocityEncoder(nn.Module):
 class VariableFromNetwork(nn.Module):
     """A free variable of arbitrary shape generated by a 2-layer MLP applied
     to a constant ones(1, 10) input (the learned object templates, contents
-    and background)."""
+    and background). ``init_bias``, a constant array of ``shape``, is added
+    to the output: the variable starts at that prior and the MLP learns
+    deltas around it. It is a buffer, not a parameter, and is not saved."""
 
     def __init__(self, shape: Sequence[int],
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 init_bias=None):
         super().__init__()
         self.shape = tuple(shape)
         self.dense = nn.ModuleList([
             TorchDense(10, 200, generator),
             TorchDense(200, int(np.prod(self.shape)), generator)])
+        self.register_buffer(
+            "init_bias", None if init_bias is None else
+            torch.as_tensor(init_bias, dtype=torch.float32).reshape(
+                self.shape), persistent=False)
 
     def forward(self) -> torch.Tensor:
         w = self.dense[0].weight
         x = torch.ones((1, 10), dtype=w.dtype, device=w.device)
         x = torch.tanh(self.dense[0](x))
-        return self.dense[1](x).reshape(self.shape)
+        x = self.dense[1](x).reshape(self.shape)
+        if self.init_bias is not None:
+            x = x + self.init_bias
+        return x

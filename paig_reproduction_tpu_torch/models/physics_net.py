@@ -14,12 +14,20 @@ default configuration: encoder -> velocity estimator -> spring-cell rollout
 * The loss consumes the fresh rollout output, so the velocity encoder and
   the physical parameters train end to end.
 
-The extension fields of the JAX model (object-discovery aids, inference
-enhancers, bf16, the LSTM cell) are not ported yet: a value other than the
-default raises ``NotImplementedError``.
+The JAX model's extension fields are ported: the discovery aids
+(``template_init``, ``active_slots``/``slot_gate_soft``,
+``attn_overlap_loss``), the physics-alignment losses
+(``template_center_loss``, ``coarse_loss``, ``vel_anchor``,
+``pos_consistency``, ``recons_warmup``, ``reference_quirks``), the learned
+``frame_offset`` (``learn_frame_offset``) and the inference enhancers
+(``init_state_fit``, ``refine_enc_pos``, ``refine_recons_pos``). bf16
+(``compute_dtype``) is not ported yet: a value other than float32 raises
+``NotImplementedError``, as does a cell the port lacks (the LSTM, the
+bouncing and gravity cells).
 """
 from __future__ import annotations
 
+import copy
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -38,6 +46,8 @@ from paig_reproduction_tpu_torch.models.decoder import (
     st_decode,
 )
 from paig_reproduction_tpu_torch.ops import cells
+from paig_reproduction_tpu_torch.ops.pos_refine import refine_positions
+from paig_reproduction_tpu_torch.ops.state_fit import fit_initial_state
 
 # Latent units per task: coord_units = n_objects * 2 (dims) * 2 (pos+vel).
 COORD_UNITS = {
@@ -48,8 +58,8 @@ COORD_UNITS = {
     "mnist_spring_color": 8,
 }
 
-# Extension fields of the JAX PhysicsNet and their defaults; only the
-# defaults are ported.
+# Extension fields of the JAX PhysicsNet and their defaults (see the JAX
+# model's field notes for what each does).
 EXTENSION_DEFAULTS = {
     "reference_quirks": False,
     "compute_dtype": "float32",
@@ -67,6 +77,11 @@ EXTENSION_DEFAULTS = {
     "refine_enc_pos": 0,
     "refine_recons_pos": 0,
 }
+# Fields of which only the default is ported.
+UNPORTED_FIELDS = ("compute_dtype",)
+# The inference enhancers: parameter-free, so a model without them
+# (``without_enhancers``) shares every parameter.
+ENHANCERS = ("init_state_fit", "refine_enc_pos", "refine_recons_pos")
 
 
 class PhysicsNet(nn.Module):
@@ -87,7 +102,7 @@ class PhysicsNet(nn.Module):
         for name, value in extensions.items():
             if name not in EXTENSION_DEFAULTS:
                 raise TypeError(f"unexpected argument {name!r}")
-            if value != EXTENSION_DEFAULTS[name]:
+            if name in UNPORTED_FIELDS and value != EXTENSION_DEFAULTS[name]:
                 raise NotImplementedError(
                     f"{name}={value!r} is not ported yet (only "
                     f"{EXTENSION_DEFAULTS[name]!r})")
@@ -106,6 +121,17 @@ class PhysicsNet(nn.Module):
             raise ValueError(f"unknown decoder_type {decoder_type!r}")
         if decoder_backend not in BACKENDS:
             raise ValueError(f"unknown decoder_backend {decoder_backend!r}")
+        # The constructor's arguments, to build a model of the same shape
+        # (fresh weights for --discovery_restarts arms).
+        self.config = dict(
+            task=task, cell_type=cell_type, seq_len=seq_len,
+            input_steps=input_steps, pred_steps=pred_steps,
+            autoencoder_loss=autoencoder_loss, alt_vel=alt_vel, color=color,
+            input_size=input_size, encoder_type=encoder_type,
+            decoder_type=decoder_type, decoder_backend=decoder_backend,
+            cell_substeps=cell_substeps, **extensions)
+        for name, default in EXTENSION_DEFAULTS.items():
+            setattr(self, name, extensions.get(name, default))
         self.task = task
         self.cell_type = cell_type
         self.seq_len = seq_len
@@ -125,36 +151,77 @@ class PhysicsNet(nn.Module):
         self.var_net_content = VariableFromNetwork((o, t, t, ch), generator)
         self.var_net_background = VariableFromNetwork((img, img, ch),
                                                       generator)
-        self.var_net_template = VariableFromNetwork((o, t, t), generator)
-        self.encoder = ConvolutionalEncoder((img, img), ch, n_objs=o,
-                                            hidden_dim=200, out_features=2,
-                                            generator=generator)
+        tmpl_prior = None
+        if self.template_init > 0:
+            # Centred-disk logit prior: +6 inside the radius, -6 outside.
+            c = (t - 1) / 2.0
+            yy, xx = np.mgrid[:t, :t]
+            disk = np.where(np.sqrt((yy - c) ** 2 + (xx - c) ** 2)
+                            <= self.template_init, 6.0, -6.0)
+            tmpl_prior = np.tile(disk[None], (o, 1, 1))
+        self.var_net_template = VariableFromNetwork((o, t, t), generator,
+                                                    init_bias=tmpl_prior)
+        self.encoder = ConvolutionalEncoder(
+            (img, img), ch, n_objs=o, hidden_dim=200, out_features=2,
+            generator=generator, active_slots=self.active_slots,
+            slot_gate_soft=self.slot_gate_soft)
         self.velocity_encoder = (
             VelocityEncoder(alt_vel, input_steps, o, generator)
             if input_steps > 1 else None)
         self.log_k = nn.Parameter(torch.zeros(()))
         self.log_equil = nn.Parameter(torch.zeros(()))
+        if self.learn_frame_offset:
+            self.frame_offset = nn.Parameter(
+                torch.zeros(self.coord_units // 2))
         self.decoder_cfg = DecoderConfig(img_hw=(img, img), tmpl_size=t,
                                          n_objs=o, conv_ch=ch, log_sig=1.0)
+
+    def without_enhancers(self) -> "PhysicsNet":
+        """A shallow copy with the inference enhancers off, sharing every
+        parameter, buffer and submodule (``--enhancers_eval_only``: the train
+        step runs it while evals keep the enhancers)."""
+        clone = copy.copy(self)
+        for name in ENHANCERS:
+            object.__setattr__(clone, name, 0)
+        return clone
+
+    def _render_fn(self, assets: DecoderAssets):
+        """The decoder as a function of positions alone, on detached assets:
+        the renderer of the Gauss-Newton position refinement."""
+        fixed = DecoderAssets(*(a.detach() for a in assets))
+        return lambda p: st_decode(fixed, p, self.decoder_cfg,
+                                   backend=self.decoder_backend)[0]
 
     def forward(self, inp: torch.Tensor, with_extras: bool = False
                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """inp: [B, T, C, H, W] float32 in [0, 1].
 
         Returns (output_seq [B, pred+extrap, C, H, W], aux dict with
-        recons_out [B, input+pred, C, H, W], enc_pos and pos_vel_seq).
-        With ``with_extras`` aux also holds ``extras``, the visualization
-        tensors in the JAX package's layouts (``extra_outputs.npz``); they
-        come from one more decode of the encoder's positions through the
-        plain path, while the outputs still go through ``decoder_backend``.
+        recons_out [B, input+pred, C, H, W], enc_pos, pos_vel_seq and the
+        penalties compute_losses reads: center_penalty,
+        attn_overlap_penalty, vel_anchor_penalty, coarse_pred_loss and
+        pos_consistency_loss). With ``with_extras`` aux also holds
+        ``extras``, the visualization tensors in the JAX package's layouts
+        (``extra_outputs.npz``); they come from one more decode of the
+        encoder's positions through the plain path, while the outputs still
+        go through ``decoder_backend``.
         """
         b = inp.shape[0]
         img, ch = self.img_size, self.conv_ch
         t_in = self.input_steps + self.pred_steps
+        s = self.input_steps
         cfg = self.decoder_cfg
+        cu2 = self.coord_units // 2
 
         template_raw = self.var_net_template()
         contents_raw = self.var_net_content()
+        if 0 < self.active_slots < self.n_objs:
+            # Slot curriculum: an inactive slot's template logits go to
+            # -1e4, which hides it wherever the warp places it.
+            gate = torch.arange(self.n_objs, device=template_raw.device
+                                ) < self.active_slots
+            template_raw = torch.where(gate[:, None, None], template_raw,
+                                       torch.full_like(template_raw, -1e4))
         assets = DecoderAssets(
             template=template_raw, contents=contents_raw,
             background=torch.sigmoid(self.var_net_background()))
@@ -162,27 +229,47 @@ class PhysicsNet(nn.Module):
         # --- encode input+pred frames (batch and time flattened) ----------
         frames = inp[:, :t_in].reshape(b * t_in, ch, img, img)
         enc_pos_flat, enc_masks, masked_objs = self.encoder(frames)
+        if self.refine_recons_pos > 0:
+            enc_pos_flat = refine_positions(
+                self._render_fn(assets), frames.permute(0, 2, 3, 1),
+                enc_pos_flat, iters=self.refine_recons_pos)
 
         # --- autoencoder path ---------------------------------------------
         recons_flat, _ = st_decode(assets, enc_pos_flat, cfg,
                                    backend=self.decoder_backend)
         recons_out = recons_flat.reshape(b, t_in, img, img, ch)
-        enc_pos = enc_pos_flat.reshape(b, t_in, self.coord_units // 2)
+        enc_pos = enc_pos_flat.reshape(b, t_in, cu2)
 
         # --- initial state ---------------------------------------------------
         if self.velocity_encoder is not None:
-            vel = self.velocity_encoder(enc_pos[:, :self.input_steps])
+            vel = self.velocity_encoder(enc_pos[:, :s])
         else:
-            vel = torch.zeros((b, self.coord_units // 2), dtype=inp.dtype,
-                              device=inp.device)
-        pos = enc_pos[:, self.input_steps - 1]
+            vel = torch.zeros((b, cu2), dtype=inp.dtype, device=inp.device)
+        # The observation window of the rollout start and the state fit,
+        # refined against the renderer with --refine_enc_pos (the encoder's
+        # positions still drive the autoencoder loss).
+        obs_win = enc_pos[:, :s]
+        if self.refine_enc_pos > 0 and self.refine_recons_pos == 0:
+            obs_win = refine_positions(
+                self._render_fn(assets),
+                inp[:, :s].reshape(b * s, ch, img, img).permute(0, 2, 3, 1),
+                obs_win.reshape(b * s, -1),
+                iters=self.refine_enc_pos).reshape(b, s, -1)
+        pos = obs_win[:, -1]
 
         # --- rollout, then one batched decode of every rollout frame ------
         step_fn, dt = cells.CELLS[self.cell_type]
         params = cells.CellParams.initial(inp.device)._replace(
             log_k=self.log_k, log_equil=self.log_equil)
+        frame_off = (self.frame_offset if self.learn_frame_offset else
+                     torch.zeros(cu2, dtype=inp.dtype, device=inp.device))
+        pos_phys0, vel0 = pos + frame_off, vel
+        if self.init_state_fit > 0 and s > 1:
+            pos_phys0, vel0 = fit_initial_state(
+                step_fn, params, obs_win + frame_off, vel, dt,
+                self.cell_substeps, self.init_state_fit)
         n_steps = self.pred_steps + self.extrap_steps
-        p, v = pos, vel
+        p, v = pos_phys0, vel0
         pos_roll, vel_roll = [], []
         for _ in range(n_steps):
             p, v = step_fn(params, p, v, dt, substeps=self.cell_substeps)
@@ -191,18 +278,20 @@ class PhysicsNet(nn.Module):
             v = cells.clip_cotangent(v)
             pos_roll.append(p)
             vel_roll.append(v)
-        pos_roll = torch.stack(pos_roll, dim=1)                     # [B, T, k]
+        pos_roll = torch.stack(pos_roll, dim=1) - frame_off         # [B, T, k]
         vel_roll = torch.stack(vel_roll, dim=1)
         frames_flat, _ = st_decode(assets, pos_roll.reshape(b * n_steps, -1),
                                    cfg, backend=self.decoder_backend)
         output_seq = frames_flat.reshape(b, n_steps, img, img, ch)
         pos_vel_seq = torch.cat(
-            [torch.cat([pos, vel], dim=1)[:, None],
+            [torch.cat([pos_phys0 - frame_off, vel0], dim=1)[:, None],
              torch.cat([pos_roll, vel_roll], dim=2)], dim=1)
 
         aux = {"recons_out": recons_out.permute(0, 1, 4, 2, 3),
                "enc_pos": enc_pos,
-               "pos_vel_seq": pos_vel_seq}
+               "pos_vel_seq": pos_vel_seq,
+               **self._penalties(inp, template_raw, enc_masks, enc_pos, vel,
+                                 output_seq, pos_vel_seq, dt)}
         if with_extras:
             _, dec_extras = st_decode(assets, enc_pos_flat, cfg,
                                       return_extras=True)
@@ -218,10 +307,87 @@ class PhysicsNet(nn.Module):
             }
         return output_seq.permute(0, 1, 4, 2, 3), aux
 
+    def _penalties(self, inp, template_raw, enc_masks, enc_pos, vel,
+                   output_seq, pos_vel_seq, dt) -> Dict[str, torch.Tensor]:
+        """The extension losses, as the JAX model computes them whatever
+        their weights (compute_losses applies the weights)."""
+        b, s = inp.shape[0], self.input_steps
+        img, ch, t = self.img_size, self.conv_ch, self.tmpl_size
+        # Template centring: squared distance of each template mask's
+        # centroid from the template centre, in template pixels.
+        mask = torch.sigmoid(template_raw)                          # [o, T, T]
+        coords = torch.arange(t, dtype=mask.dtype, device=mask.device)
+        total = torch.sum(mask, dim=(1, 2)) + 1e-6
+        cy = torch.sum(mask.sum(dim=2) * coords, dim=1) / total
+        cx = torch.sum(mask.sum(dim=1) * coords, dim=1) / total
+        centre = (t - 1) / 2.0
+        center_penalty = torch.sum((cy - centre) ** 2 + (cx - centre) ** 2)
+
+        # Slot overlap: the sum over pixels of the products of distinct
+        # object attention masks.
+        attn_obj = enc_masks[:, :self.n_objs]                   # [N, o, H, W]
+        pair = (torch.sum(attn_obj, dim=1) ** 2
+                - torch.sum(attn_obj ** 2, dim=1))
+        attn_overlap_penalty = 0.5 * torch.mean(torch.sum(pair, dim=(1, 2)))
+
+        # Velocity anchor: the central difference around the rollout's start
+        # frame s-1 (frame s is inside the encoder window).
+        vel_anchor_penalty = torch.zeros((), dtype=inp.dtype,
+                                         device=inp.device)
+        if s > 1:
+            vel_fd = (enc_pos[:, s] - enc_pos[:, s - 2]) / (2 * dt)
+            vel_anchor_penalty = torch.mean((vel - vel_fd) ** 2)
+
+        # Blurred-frame prediction loss: a 7x7 box blur, SAME, always
+        # divided by 49 (the zero padding counts).
+        coarse_pred_loss = torch.zeros((), dtype=inp.dtype, device=inp.device)
+        if self.coarse_loss > 0.0:
+            tr = output_seq.shape[1]
+
+            def blur(x):                                    # [B*tr, C, H, W]
+                return torch.nn.functional.avg_pool2d(
+                    x, 7, 1, 3, count_include_pad=True)
+
+            target = inp[:, s:].reshape(b * tr, ch, img, img)
+            out = output_seq.reshape(b * tr, img, img, ch).permute(0, 3, 1, 2)
+            diff = (blur(target) - blur(out)).reshape(b, tr, -1)
+            coarse_pred_loss = torch.mean(torch.sum(diff ** 2, dim=2))
+
+        # Position consistency: rollout step t gives frame s+t's state; the
+        # encoder saw those frames too (its positions are the target).
+        cu2 = self.coord_units // 2
+        roll_pos = pos_vel_seq[:, 1:1 + self.pred_steps, :cu2]
+        enc_tgt = enc_pos[:, s:].detach()
+        pos_consistency_loss = torch.mean(
+            torch.sum((roll_pos - enc_tgt) ** 2, dim=-1))
+        return {"center_penalty": center_penalty,
+                "attn_overlap_penalty": attn_overlap_penalty,
+                "vel_anchor_penalty": vel_anchor_penalty,
+                "coarse_pred_loss": coarse_pred_loss,
+                "pos_consistency_loss": pos_consistency_loss}
+
+
+# The penalties of PhysicsNet's aux dict, each with the model field that
+# weighs it in the train loss.
+PENALTY_WEIGHTS = {
+    "center_penalty": "template_center_loss",
+    "vel_anchor_penalty": "vel_anchor",
+    "coarse_pred_loss": "coarse_loss",
+    "pos_consistency_loss": "pos_consistency",
+    "attn_overlap_penalty": "attn_overlap_loss",
+}
+
 
 def compute_losses(model: PhysicsNet, inp: torch.Tensor,
-                   output_seq: torch.Tensor, recons_out: torch.Tensor):
-    """Squared error summed over (C, H, W), meaned over batch/time slices.
+                   output_seq: torch.Tensor, recons_out: torch.Tensor,
+                   aux: Optional[Dict[str, Any]] = None,
+                   aux_scale: float = 1.0):
+    """Squared error summed over (C, H, W), meaned over batch/time slices,
+    plus the weighted extension losses found in ``aux`` (PhysicsNet's aux
+    dict). Every extension loss but the slot overlap is scaled by
+    ``aux_scale`` (0 during --aux_warmup_epochs and until the
+    --aux_on_recons trigger), and with ``recons_warmup`` the prediction term
+    is too.
 
     inp: [B, T, C, H, W]; output_seq: [B, pred+extrap, C, H, W];
     recons_out: [B, input+pred, C, H, W].
@@ -236,9 +402,18 @@ def compute_losses(model: PhysicsNet, inp: torch.Tensor,
     pred_loss = torch.mean(loss[:, :model.pred_steps])
     extrap_loss = torch.mean(loss[:, model.pred_steps:])
 
-    train_loss = pred_loss
+    pred_weight = aux_scale if model.recons_warmup else 1.0
+    # --reference_quirks: the prediction term enters the train loss detached.
+    train_pred = pred_loss.detach() if model.reference_quirks else pred_loss
+    train_loss = pred_weight * train_pred
     if model.autoencoder_loss > 0.0:
         train_loss = train_loss + model.autoencoder_loss * recons_loss
+    for key, field in PENALTY_WEIGHTS.items():
+        weight = getattr(model, field)
+        if weight > 0.0 and aux is not None and key in aux:
+            # The slot-overlap loss is a discovery-phase loss: never gated.
+            scale = 1.0 if key == "attn_overlap_penalty" else aux_scale
+            train_loss = train_loss + scale * weight * aux[key]
     return train_loss, {
         "eval_pred_loss": pred_loss,
         "eval_extrap_loss": extrap_loss,

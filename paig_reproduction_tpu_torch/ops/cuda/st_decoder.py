@@ -4,7 +4,9 @@ Replaces the TPU kernel ``paig_reproduction_tpu/ops/pallas/st_decoder.py``
 (``_decode_kernel``). The gradient is the same split the JAX package makes
 in ``models/decoder.py::_pallas_decode_fn``: the forward is the kernel, the
 backward re-runs the plain decode under autograd. The kernel and the plain
-path compute the same function, so that backward is exact.
+path compute the same function, so that backward is exact. Forward mode
+(``torch.func.jvp``, used by the Gauss-Newton position refinement) makes the
+same split: the primal is the kernel, the tangent the plain decode's JVP.
 
 On a CPU tensor ``st_decode_fused`` computes the plain version; on a CUDA
 tensor it launches the kernel or raises.
@@ -142,16 +144,24 @@ def launch(assets: DecoderAssets, pos: torch.Tensor,
 
 
 class _STDecode(torch.autograd.Function):
-    """Kernel forward; backward through the plain decode (exact, since the
-    two compute the same function)."""
+    """Kernel forward. The backward and the forward-mode (``jvp``) rules are
+    the plain decode's, under autograd and under ``torch.func.jvp``: exact,
+    since the kernel and the plain decode compute the same function. The
+    ``jvp`` rule serves ``torch.func`` transforms; inside a
+    ``torch.autograd.forward_ad`` dual level it raises, as PyTorch does not
+    nest forward-mode levels."""
 
     @staticmethod
-    def forward(ctx, template, contents, background, pos, cfg):
-        ctx.cfg = cfg
-        ctx.save_for_backward(template, contents, background, pos)
+    def forward(template, contents, background, pos, cfg):
         with torch.profiler.record_function("st_decode.forward"):
             return launch(DecoderAssets(template, contents, background),
                           pos, cfg)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        *tensors, ctx.cfg = inputs
+        ctx.save_for_backward(*tensors)
+        ctx.save_for_forward(*tensors)
 
     @staticmethod
     def backward(ctx, grad_out):
@@ -167,6 +177,18 @@ class _STDecode(torch.autograd.Function):
                 grads = iter(torch.autograd.grad(out, wanted, grad_out))
         return (*(next(grads) if x.requires_grad else None
                   for x in inputs), None)
+
+    @staticmethod
+    def jvp(ctx, *tangents):
+        primals = ctx.saved_tensors
+        tangents = [torch.zeros_like(x) if t is None else t
+                    for x, t in zip(primals, tangents[:4])]
+        cfg = ctx.cfg
+        with torch.profiler.record_function("st_decode.jvp"):
+            return torch.func.jvp(
+                lambda t, c, b, p: st_decode_plain(DecoderAssets(t, c, b), p,
+                                                   cfg),
+                tuple(primals), tuple(tangents))[1]
 
 
 def st_decode_fused(assets: DecoderAssets, pos: torch.Tensor,

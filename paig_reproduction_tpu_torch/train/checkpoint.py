@@ -7,7 +7,9 @@ at ``save_dir/model.ckpt``, a dict of
 * ``model``: the model's ``state_dict``;
 * ``optimizer``: ``{"state": {parameter name: {key: tensor}}}``, the
   optimizer's per-parameter state keyed by name instead of by position;
-* ``step``, ``epoch`` and ``total_epochs_done``: ints.
+* ``step``, ``epoch`` and ``total_epochs_done``: ints;
+* ``recipe``: the single-command recipes' state (``RECIPE_DEFAULTS``'
+  keys), read by ``recipe_state``.
 
 Restore matches tensors by name and shape as the JAX package matches leaves
 by path: a tensor the checkpoint lacks keeps its initial value, one whose
@@ -25,6 +27,13 @@ import torch
 
 CKPT_NAME = "model.ckpt"
 SCALARS = ("step", "epoch", "total_epochs_done")
+# The recipe state and its values in a checkpoint without it: the step the
+# --aux_on_recons trigger fired at, the step, count and epoch of the last
+# --auto_rescue surgery (-1: none) and the (epoch, valid recons) history of
+# the rescue's stall guard.
+RECIPE_DEFAULTS = {"aux_trigger_step": -1, "rescue_step": -1,
+                   "rescue_count": -1, "rescue_epoch": -(10 ** 9),
+                   "recons_history": []}
 
 logger = logging.getLogger("paig")
 
@@ -116,8 +125,21 @@ def restore_checkpoint(restore_dir, model, optimizer=None):
         logger.info("checkpoint restore: %d leaves shape-incompatible, "
                     "keeping initialized values: %s", len(shape_skipped),
                     shape_skipped[:5])
-    extra += [k for k in ckpt if k not in ("model", "optimizer") + SCALARS]
+    extra += [k for k in ckpt
+              if k not in ("model", "optimizer", "recipe") + SCALARS]
     if extra:
         logger.info("checkpoint restore: ignoring %d extra leaves: %s",
                     len(extra), sorted(extra)[:5])
     return {k: int(ckpt.get(k, 0)) for k in SCALARS}
+
+
+def recipe_state(restore_dir) -> dict:
+    """The recipe state of ``restore_dir/model.ckpt``, with
+    ``RECIPE_DEFAULTS`` for what it lacks (all of it where there is no such
+    file: ``restore_checkpoint`` is the one that refuses a missing
+    checkpoint)."""
+    path = os.path.abspath(os.path.join(restore_dir, CKPT_NAME))
+    saved = (torch.load(path, map_location="cpu",
+                        weights_only=True).get("recipe", {})
+             if os.path.isfile(path) else {})
+    return {k: saved.get(k, v) for k, v in RECIPE_DEFAULTS.items()}

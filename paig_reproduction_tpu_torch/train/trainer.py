@@ -11,8 +11,15 @@ model.ckpt, outputs.npz on every eval, and after every valid and test eval
 ``extra_outputs.npz``. Every split lives on the device as uint8; each step
 gathers its batch there from the iterator's indices.
 
-Not ported yet: the single-command recipes, the watchdog, profiling and
-multi-device training.
+The single-command recipes (``train/recipes.py``) hook into the loop as in
+the JAX trainer: the aux-loss warm-up and the ``--aux_on_recons`` trigger,
+train-time physics self-identification every ``fit_physics_every`` epochs,
+the ``--auto_rescue`` surgery after a stalled valid eval, and
+``--enhancers_eval_only`` (the train step runs a copy of the model without
+the inference enhancers, sharing its parameters; evals keep them). The
+recipe state goes into every checkpoint and comes back on restore.
+
+Not ported yet: the watchdog, profiling and multi-device training.
 """
 from __future__ import annotations
 
@@ -35,9 +42,11 @@ from paig_reproduction_tpu_torch.models.physics_net import (
 from paig_reproduction_tpu_torch.train import optimizers as opt_lib
 from paig_reproduction_tpu_torch.train.checkpoint import (
     optimizer_state_by_name,
+    recipe_state,
     restore_checkpoint,
     save_checkpoint,
 )
+from paig_reproduction_tpu_torch.train.recipes import RecipeMixin
 from paig_reproduction_tpu_torch.utils.misc import (
     log_metrics,
     use_full_f32,
@@ -55,18 +64,28 @@ root_path = os.path.join(os.path.dirname(os.path.realpath(__file__)),
 EVAL_KEYS = ("eval_pred_loss", "eval_extrap_loss", "eval_recons_loss")
 
 
-class Trainer:
+class Trainer(RecipeMixin):
     """Owns the model on its device, the optimizer, the device-resident
-    data splits and the run's artifacts."""
+    data splits, the recipe state and the run's artifacts. ``seed`` seeds
+    the discovery arms' weights; ``enhancers_eval_only`` trains without the
+    inference enhancers."""
 
-    def __init__(self, model: PhysicsNet, device="cuda"):
+    def __init__(self, model: PhysicsNet, device="cuda", seed: int = 0,
+                 enhancers_eval_only: bool = False):
         self.device = torch.device(device)
         if self.device.type == "cuda":
             use_full_f32()
         self.model = model.to(self.device)
+        self.seed = seed
+        # The model the train step runs: the model itself, or its copy
+        # without the enhancers, sharing every parameter.
+        self.train_net = (self.model.without_enhancers()
+                          if enhancers_eval_only else self.model)
         self.step = 0
         self.optimizer = None
         self._lr_at = None
+        # Step at which the optimizer (and its LR schedule) started.
+        self._opt_step0 = 0
         self._splits_u8: Dict[str, torch.Tensor] = {}
         # Epoch of train_model's loop, and the epochs of the checkpoint
         # chain this run resumed (0 for a fresh run); both go into every
@@ -74,6 +93,26 @@ class Trainer:
         self._cur_epoch = 0
         self._epoch_base = 0
         self._npz_thread = None
+        # Recipes (train/recipes.py). Steps before the extension losses
+        # count (--aux_warmup_epochs; NEVER until --aux_on_recons fires).
+        self.aux_warmup_steps = 0
+        self.aux_on_recons = 0.0
+        self._aux_triggered = False
+        self.fit_physics_every = 0
+        self.fit_physics_after = 0
+        self.auto_rescue = 0
+        self.rescue_recons = 3.0
+        self.rescue_disk_radius = 0.0
+        self.rescue_seed_color = False
+        self.max_rescues = 1
+        self._rescue_count = 0
+        self._last_rescue_ep = -(10 ** 9)
+        self._rescue_step = -1
+        # (epoch, valid recons) of every valid eval: the rescue's stall
+        # guard.
+        self._recons_history = []
+        # Epochs the discovery arms used before train_model's loop.
+        self._epochs_consumed = 0
 
     # ----- data ------------------------------------------------------------
     def get_data(self, data_iterators):
@@ -94,12 +133,32 @@ class Trainer:
 
     # ----- setup -----------------------------------------------------------
     def build_optimizer(self, base_lr, optimizer="rmsprop", anneal_lr=True,
-                        epochs: int = 0, steps_per_epoch: int = 1):
-        self._lr_at = opt_lib.lr_schedule(base_lr, epochs, steps_per_epoch,
-                                          anneal_lr)
-        self.optimizer = opt_lib.build_optimizer(
-            optimizer, self.model.named_parameters(), base_lr)
-        self.step = 0
+                        epochs: int = 0, steps_per_epoch: int = 1,
+                        physics_lr_mult: float = 1.0,
+                        grad_clip: float = 0.0, aux_warmup_epochs: int = 0,
+                        bg_lr_mult: float = 1.0):
+        self.base_lr = base_lr
+        self.anneal_lr = anneal_lr
+        self.aux_warmup_steps = aux_warmup_epochs * steps_per_epoch
+        self._opt_args = dict(optimizer=optimizer, epochs=epochs,
+                              steps_per_epoch=steps_per_epoch,
+                              physics_lr_mult=physics_lr_mult,
+                              grad_clip=grad_clip, bg_lr_mult=bg_lr_mult)
+        self.optimizer = self._make_optimizer()
+        self.step = self._opt_step0 = 0
+
+    def _make_optimizer(self, epochs=None, bg_lr_mult=None):
+        """A fresh optimizer with build_optimizer's arguments, and its LR
+        schedule over ``epochs`` (build_optimizer's by default)."""
+        a = self._opt_args
+        self._lr_at = opt_lib.lr_schedule(
+            self.base_lr, a["epochs"] if epochs is None else epochs,
+            a["steps_per_epoch"], self.anneal_lr)
+        return opt_lib.build_optimizer(
+            a["optimizer"], self.model.named_parameters(), self.base_lr,
+            physics_lr_mult=a["physics_lr_mult"], grad_clip=a["grad_clip"],
+            bg_lr_mult=a["bg_lr_mult"] if bg_lr_mult is None
+            else bg_lr_mult)
 
     # ----- checkpoint / save_dir semantics ----------------------------------
     def initialize_graph(self, save_dir, use_ckpt=False, ckpt_dir=""):
@@ -130,6 +189,40 @@ class Trainer:
             self.step = scalars["step"]
             self._epoch_base = max(scalars["total_epochs_done"],
                                    scalars["epoch"])
+            self._restore_recipe(recipe_state(restore_dir),
+                                 ep_saved=scalars["epoch"])
+
+    def _restore_recipe(self, state, ep_saved):
+        """The recipe state of a checkpoint, as the JAX trainer restores
+        it. Epochs are rebased by ``ep_saved`` into the resumed run's
+        numbering (its loop starts at epoch 1 again)."""
+        if state["recons_history"]:
+            self._recons_history = [(int(e) - ep_saved, float(r))
+                                    for e, r in state["recons_history"]]
+            logger.info(
+                "auto_rescue stall-guard history restored (%d evals, "
+                "rebased to resume epoch 0)", len(self._recons_history))
+        if state["rescue_step"] >= 0:
+            rc = state["rescue_count"]
+            self._rescue_count = rc if rc >= 0 else 1
+            self._rescue_step = state["rescue_step"]
+            # The optimizer state restored is the one the surgery
+            # restarted, and so is its schedule.
+            self._opt_step0 = self._rescue_step
+            resc_ep = state["rescue_epoch"]
+            self._last_rescue_ep = (resc_ep - ep_saved if resc_ep > -(10 ** 8)
+                                    else 0)
+            logger.info(
+                "auto_rescue state restored (surgery at step %d, "
+                "%d rescue(s) used); pass --bg_lr_mult=0 to keep the "
+                "background frozen on this resume", self._rescue_step,
+                self._rescue_count)
+        trig = state["aux_trigger_step"]
+        if self.aux_on_recons > 0 and trig >= 0:
+            self._aux_triggered = True
+            self.aux_warmup_steps = trig
+            logger.info("aux_on_recons trigger restored from checkpoint "
+                        "(fired at step %d)", trig)
 
     def save(self):
         save_checkpoint(self.save_dir, {
@@ -137,7 +230,15 @@ class Trainer:
             "optimizer": optimizer_state_by_name(self.model, self.optimizer),
             "step": self.step,
             "epoch": self._cur_epoch,
-            "total_epochs_done": self._epoch_base + self._cur_epoch})
+            "total_epochs_done": self._epoch_base + self._cur_epoch,
+            "recipe": {
+                "aux_trigger_step": (self.aux_warmup_steps
+                                     if self._aux_triggered else -1),
+                "rescue_step": self._rescue_step,
+                "rescue_count": self._rescue_count,
+                "rescue_epoch": self._last_rescue_ep,
+                "recons_history": [list(h) for h in
+                                   self._recons_history[-64:]]}})
 
     def add_train_logger(self):
         log_path = os.path.abspath(os.path.join(self.save_dir, "log.txt"))
@@ -150,19 +251,27 @@ class Trainer:
         logger.addHandler(fh)
 
     # ----- steps -------------------------------------------------------------
-    def _losses(self, batch):
-        out, aux = self.model(batch)
-        return compute_losses(self.model, batch, out, aux["recons_out"])
+    def _losses(self, batch, net=None, aux_scale=1.0):
+        net = self.model if net is None else net
+        out, aux = net(batch)
+        return compute_losses(net, batch, out, aux["recons_out"], aux,
+                              aux_scale=aux_scale)
 
     def train_step(self, idx) -> Dict[str, torch.Tensor]:
-        """One optimizer step on the train-split sequences ``idx``.
-        Returns the step's losses as device tensors."""
+        """One optimizer step on the train-split sequences ``idx``, with the
+        extension losses on from step ``aux_warmup_steps``. Returns the
+        step's losses as device tensors."""
         batch = gather_batch(self._split_u8("train"), idx)
-        for group in self.optimizer.param_groups:
-            group["lr"] = self._lr_at(self.step)
-        loss, eval_losses = self._losses(batch)
+        opt_lib.set_lr(self.optimizer,
+                       self._lr_at(self.step - self._opt_step0))
+        loss, eval_losses = self._losses(
+            batch, self.train_net,
+            aux_scale=1.0 if self.step >= self.aux_warmup_steps else 0.0)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if self.optimizer.grad_clip > 0:
+            opt_lib.clip_train_group_(self.optimizer,
+                                      self.optimizer.grad_clip)
         self.optimizer.step()
         self.step += 1
         return {**{k: v.detach() for k, v in eval_losses.items()},
@@ -180,8 +289,10 @@ class Trainer:
         logger.info("\n".join(sys.argv))
 
         if not debug and epochs > 0:
-            log_metrics(logger, "valid - epoch=%s" % 0,
-                        self.eval_performance(batch_size, type="valid"))
+            valid = self.eval_performance(batch_size, type="valid")
+            log_metrics(logger, "valid - epoch=%s" % 0, valid)
+            self._recons_history.append(
+                (0, float(valid["eval_recons_loss"])))
 
         t0 = time.perf_counter()
         frames = 0
@@ -195,10 +306,16 @@ class Trainer:
                 if step % print_interval == 0:
                     log_metrics(logger, "train - iter=%s" % step,
                                 {"train_loss": float(metrics["train_loss"])})
+            if (self.fit_physics_every > 0 and ep >= self.fit_physics_after
+                    and (self.aux_on_recons <= 0 or self._aux_triggered)
+                    and ep % self.fit_physics_every == 0):
+                self._identify_physics(batch_size)
             if ep % eval_every_n_epochs == 0:
                 print("eval running")
-                log_metrics(logger, "valid - epoch=%s" % ep,
-                            self.eval_performance(batch_size, type="valid"))
+                valid = self.eval_performance(batch_size, type="valid")
+                log_metrics(logger, "valid - epoch=%s" % ep, valid)
+                self._after_valid_eval(ep,
+                                       float(valid["eval_recons_loss"]))
             if ep % save_every_n_epochs == 0:
                 print("saving")
                 self.save()
@@ -218,6 +335,39 @@ class Trainer:
         self.flush_artifacts()
         return test_metrics
 
+    def _after_valid_eval(self, ep, recons):
+        """The recipe hooks of a valid eval at loop epoch ``ep``: the stall
+        history, the --auto_rescue surgery and the --aux_on_recons
+        trigger."""
+        self._recons_history.append((ep, recons))
+        rescued = False
+        if (self.auto_rescue > 0 and self._rescue_count < self.max_rescues
+                and ep >= self.auto_rescue
+                and ep - self._last_rescue_ep >= self.auto_rescue
+                and recons > self.rescue_recons
+                and self._discovery_stalled(ep, recons)):
+            self._do_auto_rescue(ep, recons)
+            rescued = True
+        # The trigger does not read the recons of the eval that just fired
+        # a rescue: the reset model is far above the threshold again.
+        if (not rescued and self.aux_on_recons > 0
+                and not self._aux_triggered and recons < self.aux_on_recons):
+            self._aux_triggered = True
+            if self.fit_physics_every > 0:
+                # Physics is still uninitialized: the first accepted
+                # train-time fit turns the alignment losses on.
+                logger.info(
+                    "aux_on_recons trigger: valid recons %.3f < %.3f at "
+                    "epoch %d (step %d) — train-time physics fits armed; "
+                    "alignment losses enable on the first accepted fit",
+                    recons, self.aux_on_recons, ep, self.step)
+            else:
+                self.aux_warmup_steps = self.step
+                logger.info(
+                    "aux_on_recons trigger: valid recons %.3f < %.3f at "
+                    "epoch %d (step %d) — physics-alignment losses now "
+                    "active", recons, self.aux_on_recons, ep, self.step)
+
     def flush_artifacts(self):
         """Block until the outputs.npz writer (if any) has finished."""
         if self._npz_thread is not None:
@@ -225,10 +375,10 @@ class Trainer:
             self._npz_thread = None
 
     @torch.no_grad()
-    def eval_performance(self, batch_size, type="valid"):
-        """Whole-epoch metric averages over the split's batches (a split of
-        fewer than 100 sequences is one batch), the outputs.npz dump, then
-        the visualization."""
+    def _eval_losses(self, type, batch_size):
+        """Every full batch of one epoch of a split (a split of fewer than
+        100 sequences is one batch): ([batches, 3] losses in EVAL_KEYS'
+        order, the index batches)."""
         eval_iterator = self.get_iterator(type)
         eval_iterator.reset_epoch()
         n = eval_iterator.X.shape[0]
@@ -241,8 +391,14 @@ class Trainer:
         for idx in idxs:
             _, eval_losses = self._losses(gather_batch(data_u8, idx))
             per_batch.append(torch.stack([eval_losses[k] for k in EVAL_KEYS]))
-        outputs = torch.stack(per_batch).cpu().numpy()   # [batches, 3]
-        self._write_outputs_npz(eval_iterator.X[idxs.reshape(-1)], outputs)
+        return torch.stack(per_batch).cpu().numpy(), idxs
+
+    def eval_performance(self, batch_size, type="valid"):
+        """Whole-epoch metric averages over the split's batches, the
+        outputs.npz dump, then the visualization."""
+        outputs, idxs = self._eval_losses(type, batch_size)
+        self._write_outputs_npz(
+            self.get_iterator(type).X[idxs.reshape(-1)], outputs)
         self.visualize_sequence()
         means = outputs.mean(axis=0)
         return {k: means[i] for i, k in enumerate(EVAL_KEYS)}

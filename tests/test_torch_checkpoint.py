@@ -1,7 +1,10 @@
 """The port's checkpoints against the JAX package's: save and restore, the
 partial-restore rules and their log lines, the save_dir wipe or restore
 decision, the test phase's restore source, and the trained
-``runs/spring500`` checkpoint converted and scored on the seq-30 test split.
+``runs/spring500``, ``runs/ph5`` and ``runs/spring500c`` checkpoints
+converted and scored on the seq-30 test split; spring500 with the inference
+enhancers on; and spring500c's converted optimizer state stepped against
+optax.
 
 Tolerances: a restored run's next step equals the unbroken run's exactly
 (the same float32 operations on the same values). The spring500 losses
@@ -23,9 +26,12 @@ from paig_reproduction_tpu.models import PhysicsNet as JaxPhysicsNet
 from paig_reproduction_tpu.train import checkpoint as jax_ckpt
 from paig_reproduction_tpu.train import trainer as jax_trainer_mod
 from paig_reproduction_tpu_torch import cli
-from paig_reproduction_tpu_torch.convert import flax_checkpoint_to_port
+from paig_reproduction_tpu_torch.convert import (
+    flax_checkpoint_to_port,
+    flax_to_state_dict,
+)
 from paig_reproduction_tpu_torch.data import iterators
-from paig_reproduction_tpu_torch.models import PhysicsNet
+from paig_reproduction_tpu_torch.models import PhysicsNet, compute_losses
 from paig_reproduction_tpu_torch.train import checkpoint
 from paig_reproduction_tpu_torch.train import trainer as trainer_mod
 from paig_reproduction_tpu_torch.train.trainer import Trainer
@@ -321,3 +327,148 @@ def test_spring500_scores_as_jax(tmp_path, paig_log, monkeypatch):
     np.testing.assert_allclose(
         [port["eval_pred_loss"], port["eval_extrap_loss"],
          port["eval_recons_loss"]], ref, rtol=1e-4)
+
+
+# Trained runs whose flags use the model extension fields: (run, CLI flags,
+# the JAX model's fields).
+TRAINED_RUNS = {
+    "ph5": (["--pos_consistency=0.3", "--learn_frame_offset",
+             "--cell_substeps=10"],
+            dict(pos_consistency=0.3, learn_frame_offset=True,
+                 cell_substeps=10)),
+    "spring500c": (["--template_center_loss=0.1", "--coarse_loss=1.0",
+                    "--vel_anchor=0.1", "--physics_lr_mult=3.0"],
+                   dict(template_center_loss=0.1, coarse_loss=1.0,
+                        vel_anchor=0.1)),
+}
+
+
+def _restore_run(run):
+    import orbax.checkpoint as ocp
+    return jax.device_get(ocp.PyTreeCheckpointer().restore(
+        os.path.join(REPO, "runs", run, "model.ckpt")))
+
+
+@pytest.mark.parametrize("run", sorted(TRAINED_RUNS))
+def test_trained_run_scores_as_jax(tmp_path, paig_log, monkeypatch, run):
+    """runs/ph5 (a learned frame offset, 10 substeps) and runs/spring500c
+    (the template-centre, coarse and velocity-anchor losses; the
+    physics_lr_mult optimizer), restored with orbax, converted and scored by
+    the port's --test_mode with the run's flags on the seq-30 test split,
+    against the JAX model's outputs with the same fields (float64 losses).
+    The converted optimizer state covers every parameter, from each
+    multi_transform branch."""
+    flags, fields = TRAINED_RUNS[run]
+    tree = _restore_run(run)
+    converted = flax_checkpoint_to_port(tree)
+    assert set(converted["optimizer"]["state"]) == set(converted["model"])
+    ckpt_dir = tmp_path / "converted"
+    ckpt_dir.mkdir()
+    checkpoint.save_checkpoint(str(ckpt_dir), converted)
+
+    monkeypatch.setenv("PAIG_VIZ_EXAMPLES", "1")
+    _, test_trainer = cli.main([
+        "--task=spring_color", "--base_lr=6e-4", "--autoencoder_loss=3.0",
+        "--color", "--test_mode", f"--ckpt_dir={ckpt_dir}",
+        f"--save_dir={tmp_path / 'test'}", "--device=cpu", *flags])
+    assert test_trainer.step == int(tree["step"])
+    line = next(r.getMessage() for r in paig_log.records
+                if r.getMessage().startswith("test - epoch=0 "))
+    port = {k: float(v) for k, v in re.findall(r"(\w+)=(\S+)", line)
+            if k.startswith("eval_")}
+
+    model = JaxPhysicsNet(**dict(KW, seq_len=30), **fields)
+    apply = jax.jit(model.apply)
+    with np.load(SL30) as d:
+        test_x = d["test_x"]
+    per_batch = []
+    for i in range(0, 200, 100):
+        inp = (np.transpose(test_x[i:i + 100], (0, 1, 4, 2, 3))
+               .astype(np.float32) / 255.0)
+        out, aux = apply({"params": tree["params"]}, inp)
+        per_batch.append(_float64_losses(
+            model, inp, np.asarray(out, np.float64),
+            np.asarray(aux["recons_out"], np.float64)))
+    ref = np.mean(per_batch, axis=0)
+    np.testing.assert_allclose(
+        [port["eval_pred_loss"], port["eval_extrap_loss"],
+         port["eval_recons_loss"]], ref, rtol=1e-4)
+
+
+def test_spring500_enhancers_match_jax_apply():
+    """runs/spring500's weights with init_state_fit=3 and
+    refine_recons_pos=4 on 20 valid sequences: the refined enc_pos, the
+    fitted rollout start and the losses equal the JAX model's apply with
+    the same fields. Tolerances: positions within 1e-3 px and losses at
+    rtol 1e-4 (f32 Gauss-Newton solves on well-separated trained
+    encodings; sums in another order)."""
+    tree = _restore_run("spring500")
+    fields = dict(init_state_fit=3, refine_recons_pos=4)
+    with np.load(SL12) as d:
+        inp = (np.transpose(d["valid_x"][:20], (0, 1, 4, 2, 3))
+               .astype(np.float32) / 255.0)
+    j_model = JaxPhysicsNet(**KW, **fields)
+    j_out, j_aux = jax.jit(j_model.apply)({"params": tree["params"]}, inp)
+    model = PhysicsNet(**KW, **fields)
+    model.load_state_dict(flax_checkpoint_to_port(tree)["model"])
+    x = torch.from_numpy(inp)
+    with torch.no_grad():
+        out, aux = model(x)
+        _, losses = compute_losses(model, x, out, aux["recons_out"], aux)
+    np.testing.assert_allclose(aux["enc_pos"].numpy(),
+                               np.asarray(j_aux["enc_pos"]), rtol=0,
+                               atol=1e-3)
+    np.testing.assert_allclose(aux["pos_vel_seq"].numpy(),
+                               np.asarray(j_aux["pos_vel_seq"]), rtol=0,
+                               atol=1e-3)
+    ref = _float64_losses(j_model, inp, np.asarray(j_out, np.float64),
+                          np.asarray(j_aux["recons_out"], np.float64))
+    np.testing.assert_allclose(
+        [float(losses[k]) for k in ("eval_pred_loss", "eval_extrap_loss",
+                                    "eval_recons_loss")], ref, rtol=1e-4)
+    # The refinement moved the positions.
+    plain = JaxPhysicsNet(**KW).apply({"params": tree["params"]}, inp)[1]
+    assert np.abs(aux["enc_pos"].numpy()
+                  - np.asarray(plain["enc_pos"])).max() > 1e-2
+
+
+def test_spring500c_optimizer_step_matches_optax(tmp_path):
+    """runs/spring500c's RMSprop state (a multi_transform with a physics
+    branch at physics_lr_mult=3), converted: one step on the same
+    gradients equals optax's from the restored state, at its step count
+    (12500, past the anneal). Tolerance rtol 1e-6 / atol 1e-7."""
+    import optax
+
+    from paig_reproduction_tpu.train import optimizers as jax_opt
+    from paig_reproduction_tpu_torch.train import optimizers
+
+    tree = _restore_run("spring500c")
+    params = tree["params"]
+    tx = jax_opt.build_optimizer(
+        "rmsprop", jax_opt.lr_schedule(6e-4, 500, 25, True), params,
+        physics_lr_mult=3.0)
+    restored = jax_ckpt.restore_checkpoint(
+        os.path.join(REPO, "runs", "spring500c"),
+        {"params": params, "opt_state": tx.init(params),
+         "step": np.asarray(0)})
+    rs = np.random.RandomState(0)
+    grads = jax.tree.map(
+        lambda a: np.asarray(rs.randn(*np.shape(a)), np.float32), params)
+    updates, _ = tx.update(grads, restored["opt_state"], params)
+    ref = flax_to_state_dict(jax.device_get(
+        optax.apply_updates(params, updates)))
+
+    converted = flax_checkpoint_to_port(tree)
+    checkpoint.save_checkpoint(str(tmp_path), converted)
+    model = PhysicsNet(**KW)
+    opt = optimizers.build_optimizer("rmsprop", model.named_parameters(),
+                                     6e-4, physics_lr_mult=3.0)
+    step = checkpoint.restore_checkpoint(str(tmp_path), model, opt)["step"]
+    assert step == 12500
+    optimizers.set_lr(opt, optimizers.lr_schedule(6e-4, 500, 25, True)(step))
+    for name, g in flax_to_state_dict(grads).items():
+        model.get_parameter(name).grad = g
+    opt.step()
+    for name, p in model.named_parameters():
+        np.testing.assert_allclose(p.detach().numpy(), ref[name].numpy(),
+                                   rtol=1e-6, atol=1e-7, err_msg=name)

@@ -67,3 +67,91 @@ def test_expected_launches_count_a_cli_run(tmp_path, monkeypatch):
             h.close()
     assert len(calls) == chip_smoke.expected_launches(
         trainer.step, 4, 4, 4, batch_size=4, epochs=2) == 28
+
+
+def _tiny_data(tmp_path, n_train=8):
+    import numpy as np
+
+    data = os.path.join(os.path.dirname(chip_smoke.__file__), "data",
+                        "datasets", "spring_color")
+    (tmp_path / "spring_color").mkdir(exist_ok=True)
+    for name in ("color_spring_vx8_vy8_sl12_r2_k4_e6.npz",
+                 "color_spring_vx8_vy8_sl30_r2_k4_e6.npz"):
+        with np.load(os.path.join(data, name)) as d:
+            np.savez(tmp_path / "spring_color" / name,
+                     train_x=d["train_x"][:n_train],
+                     valid_x=d["valid_x"][:4], test_x=d["test_x"][:4])
+
+
+def test_recipe_launches_count_a_recipe_run(tmp_path, monkeypatch):
+    """chip_smoke.py's recipe flags, run tiny on the CPU (8 train, 4 valid
+    and 4 test sequences, B=4): the kernel's wrapper is called as often as
+    recipe_counts and recipe_decodes say the card's run launches it, the
+    refinement's calls included, and every hook fires."""
+    import logging
+
+    from paig_reproduction_tpu_torch import cli
+    from paig_reproduction_tpu_torch.models import physics_net
+
+    _tiny_data(tmp_path)
+    fused = tkernel.st_decode_fused
+    calls = []
+    monkeypatch.setattr(tkernel, "st_decode_fused",
+                        lambda *a: calls.append(1) or fused(*a))
+    refine = physics_net.refine_positions
+    in_refine = []
+
+    def counted_refine(*args, **kwargs):
+        before = len(calls)
+        out = refine(*args, **kwargs)
+        in_refine.append(len(calls) - before)
+        return out
+
+    monkeypatch.setattr(physics_net, "refine_positions", counted_refine)
+    monkeypatch.setenv("PAIG_VIZ_EXAMPLES", "1")
+    argv = [a for a in chip_smoke.RECIPE_ARGS if a != "--device=cuda"]
+    save_dir = tmp_path / "run"
+    logger = logging.getLogger("paig")
+    handlers = list(logger.handlers)
+    try:
+        trainer, test_trainer = cli.main(argv + [
+            "--batch_size=4", f"--data_dir={tmp_path}",
+            f"--save_dir={save_dir}", "--device=cpu"])
+    finally:
+        for h in set(logger.handlers) - set(handlers):
+            logger.removeHandler(h)
+            h.close()
+    counts = chip_smoke.recipe_counts(
+        save_dir / "log.txt", arms=2, arm_epochs=1, loop_epochs=3,
+        steps_per_epoch=2, valid_batches=1, test_batches=1, test30_batches=1)
+    launches, refine_launches = chip_smoke.recipe_decodes(
+        *counts, chip_smoke.REFINE_ITERS)
+    assert len(calls) == launches
+    assert sum(in_refine) == refine_launches
+    assert set(in_refine) == {chip_smoke.REFINE_ITERS}
+    log = (save_dir / "log.txt").read_text()
+    for needle in ("discovery restart arm 2/2", "aux_on_recons trigger: ",
+                   "- fit_physics: "):
+        assert needle in log
+    assert test_trainer.model.refine_recons_pos == chip_smoke.REFINE_ITERS
+    assert trainer.train_net.refine_recons_pos == 0
+
+
+def test_recipe_flags_are_the_logged_recipes():
+    """chip_smoke.py's recipe keeps benchmarks/spring_one5_test_log.txt's
+    flags; only the depth flags differ."""
+    log = os.path.join(os.path.dirname(chip_smoke.__file__), "benchmarks",
+                       "spring_one5_test_log.txt")
+    with open(log) as f:
+        logged = {line.strip().split("=")[0]: line.strip()
+                  for line in f if line.startswith("--")}
+    smoke = {a.split("=")[0]: a for a in chip_smoke.RECIPE_ARGS}
+    depth = {"--epochs", "--discovery_restarts", "--discovery_epochs",
+             "--aux_on_recons", "--fit_physics_every", "--auto_rescue",
+             "--max_rescues", "--save_every_n_epochs"}
+    for flag, arg in logged.items():
+        if flag in ("--save_dir", "--seed", "--batch_size"):
+            continue
+        assert flag in smoke, flag
+        if flag not in depth:
+            assert smoke[flag] == arg, flag

@@ -197,8 +197,8 @@ def test_task_table_equals_jax():
 
 
 @pytest.mark.parametrize("flag", ["--profile_dir=x", "--n_model_shards=2",
-                                  "--aux_on_recons=1.0",
-                                  "--grad_clip=1.0", "--discovery_restarts=2",
+                                  "--debug_nans", "--native_loader",
+                                  "--resume_remaining_epochs",
                                   "--watchdog_secs=60"])
 def test_unported_flags_raise(flag):
     with pytest.raises(NotImplementedError):
