@@ -48,9 +48,24 @@ Phases, each printing its elapsed seconds:
                 the rescue and trigger state back. It prints the recipe's
                 train step and an eval batch's time with and without the
                 enhancers;
-9. kernels    - one JSON line with every kernel's launches, error, times,
+9. tasks      - the other four tasks of the task table (bouncing_balls,
+                3bp_color, spring_color_half, mnist_spring_color), each
+                through the CLI entry at B=100 and full width, its depth
+                cut (``TASK_RUNS``: the epochs, and for the two tasks
+                whose files are not tracked the sequence counts that
+                data/generate.py writes under data/generated/ at first
+                use, started in the background when the script starts),
+                with the model flags of its logged recipe: train, evals,
+                checkpoint, the seq-30 or seq-40 test phase and the
+                artifacts. Losses must be finite and fall, the test phase
+                must restore the run's checkpoint, every artifact must be
+                there, and the kernel's launch count must equal the count
+                of every decode (the refinement's included). It prints
+                each task's median train step;
+10. kernels   - one JSON line with every kernel's launches, error, times,
                 share of its bound and store-only floor, at the main
-                path's N=1000 and at N=2600, and the recipe's launches.
+                path's N=1000 and at N=2600, the recipe's launches, each
+                task's launches and the kernel at the tasks' shapes.
 
 With ``--parent OLD/csrc/st_decoder.cu`` (an earlier source of the kernel
 whose C entry, ``st_decode_forward``, takes no ``slots`` argument) the
@@ -60,11 +75,13 @@ to the plain version first.
 
 The last line is {"ok": true, "device": {...}}. Any failure raises, and the
 script exits non-zero without that line; without a CUDA device it fails at
-once. It writes only under a temporary directory.
+once. It writes under a temporary directory, and the generated datasets
+under data/generated/ (gitignored).
 """
 from __future__ import annotations
 
 import argparse
+import atexit
 import ctypes
 import json
 import math
@@ -79,6 +96,8 @@ from contextlib import contextmanager
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 DATA_DIR = os.path.join(REPO, "data", "datasets")
+# Where the tasks without tracked files get theirs (gitignored).
+GENERATED_DIR = os.path.join(REPO, "data", "generated")
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and f32 FLOP/s outside
 # the tensor cores.
@@ -111,6 +130,41 @@ RECIPE_ARGS = TRAIN_ARGS + [
     "--pos_consistency=1.0", "--vel_anchor=1.0", "--learn_frame_offset",
     "--init_state_fit=3", f"--refine_recons_pos={REFINE_ITERS}",
     "--enhancers_eval_only", "--save_every_n_epochs=1"]
+# The other four tasks, each at B=100 and full width with the model flags
+# of the logged recipe `log` (its epoch count and its discovery, trigger and
+# rescue flags cut), `extra` flags that cut its depth, `epochs`, and for a
+# task whose files are not tracked the sizes data/generate.py writes:
+# (train, valid, test) of the train-length file and the test sequences of
+# the longer one.
+TASK_RUNS = {
+    "bouncing_balls": dict(
+        log="benchmarks/bounce_one1_test_log.txt",
+        flags=["--base_lr=3e-4", "--autoencoder_loss=2.0", "--color",
+               "--pos_consistency=1.0", "--vel_anchor=1.0",
+               "--learn_frame_offset", "--init_state_fit=1",
+               "--refine_enc_pos=4", "--refine_recons_pos=4",
+               "--enhancers_eval_only"],
+        extra=[], epochs=1, generate=None),
+    "3bp_color": dict(
+        log="benchmarks/3bp_test_log.txt",
+        flags=["--color", "--autoencoder_loss=5.0", "--learn_frame_offset",
+               "--init_state_fit=3"],
+        extra=["--fit_physics_every=1"], epochs=1, generate=None),
+    "spring_color_half": dict(
+        log="benchmarks/half_one1_test_log.txt",
+        flags=["--base_lr=6e-4", "--autoencoder_loss=3.0", "--color",
+               "--pos_consistency=1.0", "--vel_anchor=1.0",
+               "--learn_frame_offset", "--init_state_fit=3",
+               "--refine_recons_pos=4", "--enhancers_eval_only"],
+        extra=[], epochs=4, generate=((200, 100, 100), 20)),
+    "mnist_spring_color": dict(
+        log="benchmarks/mnist_one2_test_log.txt",
+        flags=["--base_lr=6e-4", "--autoencoder_loss=3.0", "--color",
+               "--pos_consistency=1.0", "--vel_anchor=1.0",
+               "--learn_frame_offset", "--init_state_fit=3",
+               "--refine_recons_pos=4", "--enhancers_eval_only"],
+        extra=[], epochs=4, generate=((200, 100, 100), 20)),
+}
 # The tangent's tolerance, relative to its largest value: through the
 # kernel's wrapper the tangent is the plain decode's JVP of the same inputs,
 # so the two differ only where the card's sums run in another order.
@@ -127,14 +181,19 @@ def phase(name):
 
 # (N, img, T, o, ch): the main path's train (N=1000) and eval (N=800)
 # decodes at 32/16/2/3, and the seq-30 test phase's 26 rollout frames x
-# B=100 (N=2600, several slabs a warp); the other tasks' train decodes at
-# B=100 (3bp_color's 16 frames a sequence; 64x64 mnist_spring_color's 10,
-# in one and three channels, 64/32/2/3 being the largest block the kernel
-# stages); small N of those shapes; and the edges of the persistent grid:
-# one frame and an N that the grid does not divide.
+# B=100 (N=2600, several slabs a warp); the other tasks' decodes at B=100:
+# 3bp_color's 16 reconstruction and 16 rollout frames a sequence (N=1600)
+# and the seq-40 phase's 36 rollout frames (N=3600); 64x64
+# mnist_spring_color's 10 reconstruction frames (N=1000, in one and three
+# channels, 64/32/2/3 being the largest block the kernel stages), 9 rollout
+# frames (N=900) and the seq-30 phase's 27 (N=2700); small N of those
+# shapes; and the edges of the persistent grid: one frame and an N that the
+# grid does not divide.
 TIMED_SHAPES = [(1000, 32, 16, 2, 3), (800, 32, 16, 2, 3),
                 (2600, 32, 16, 2, 3), (1600, 36, 18, 3, 3),
-                (1000, 64, 32, 2, 1), (1000, 64, 32, 2, 3)]
+                (3600, 36, 18, 3, 3), (1000, 64, 32, 2, 1),
+                (1000, 64, 32, 2, 3), (900, 64, 32, 2, 3),
+                (2700, 64, 32, 2, 3)]
 ST_DECODE_SHAPES = TIMED_SHAPES + [
     (37, 36, 18, 3, 3), (19, 64, 32, 2, 1), (5, 32, 16, 2, 1),
     (3, 64, 32, 2, 3), (1, 32, 16, 2, 3), (1001, 32, 16, 2, 3)]
@@ -817,6 +876,142 @@ def recipe(batch_size=100):
                 eval_plain_ms=eval_off)
 
 
+def generated_dir(task):
+    """The directory of a task's generated files, named by its sizes."""
+    (n_train, n_valid, n_test), n_test30 = TASK_RUNS[task]["generate"]
+    return os.path.join(GENERATED_DIR,
+                        f"n{n_train}-{n_valid}-{n_test}_t{n_test30}")
+
+
+def start_generation():
+    """Starts data/generate.py, one process a task, for every task of
+    TASK_RUNS whose files are not tracked and not generated yet. Returns
+    {task: (process, start time)}."""
+    from paig_reproduction_tpu_torch import cli
+    procs = {}
+    for task, run in TASK_RUNS.items():
+        if run["generate"] is None:
+            continue
+        out = generated_dir(task)
+        if all(os.path.exists(os.path.join(out, rel))
+               for rel in cli.TASK_TABLE[task][:2]):
+            continue
+        (n_train, n_valid, n_test), n_test30 = run["generate"]
+        procs[task] = (subprocess.Popen(
+            [sys.executable, "-m", "paig_reproduction_tpu_torch.data.generate",
+             f"--task={task}", f"--out_dir={out}", f"--train={n_train}",
+             f"--valid={n_valid}", f"--test={n_test}", "--test_train=0",
+             "--test_valid=0", f"--test_test={n_test30}"],
+            cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True), time.perf_counter())
+    # A phase that fails before finish_generation leaves none running.
+    atexit.register(lambda: [p.kill() for p, _ in procs.values()
+                             if p.poll() is None])
+    return procs
+
+
+def finish_generation(procs):
+    """Waits for the generators and prints their times."""
+    for task, run in TASK_RUNS.items():
+        if run["generate"] is None:
+            continue
+        if task not in procs:
+            print(f"{task}: generated files found in {generated_dir(task)}")
+            continue
+        proc, t0 = procs[task]
+        log, _ = proc.communicate()
+        waited = time.perf_counter() - t0
+        if proc.returncode:
+            raise RuntimeError(f"generating {task} failed:\n{log}")
+        # The generator's own times of each file (the wait above also
+        # holds the phases that ran beside it).
+        for line in log.splitlines():
+            if " sequences of " in line:
+                print(f"{task}: generated {line.split('] ', 1)[1]}")
+        print(f"{task}: generation ended by {waited:.1f} s after the "
+              f"script started it")
+
+
+def task_argv(task, data_dir, save_dir, batch_size=100):
+    run = TASK_RUNS[task]
+    return ([f"--task={task}", "--print_interval=1", "--device=cuda",
+             f"--epochs={run['epochs']}", f"--batch_size={batch_size}",
+             f"--data_dir={data_dir}", f"--save_dir={save_dir}"]
+            + run["flags"] + run["extra"])
+
+
+def refine_iters(argv):
+    """Gauss-Newton refinement iterations of a model built from argv: the
+    reconstructions' (every encoded frame), else the input window's."""
+    flags = dict(a[2:].split("=", 1) for a in argv if "=" in a)
+    recons = int(flags.get("refine_recons_pos", 0))
+    return recons or int(flags.get("refine_enc_pos", 0))
+
+
+def run_task(task, data_dir, batch_size=100):
+    """One task through the CLI entry: train, evals, checkpoint, the long
+    test phase and the artifacts, every decode counted. Returns the
+    phase's numbers."""
+    import torch
+    from paig_reproduction_tpu_torch import cli
+    from paig_reproduction_tpu_torch.ops.cuda import st_decoder as sd
+
+    run = TASK_RUNS[task]
+    save_dir = os.path.join(tempfile.mkdtemp(prefix=f"paig_{task}_"), "run")
+    argv = task_argv(task, data_dir, save_dir, batch_size)
+    with cli_run():
+        sd.LAUNCHES = 0
+        t0 = time.perf_counter()
+        trainer, test_trainer = cli.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = sd.LAUNCHES
+
+    log_path = os.path.join(save_dir, "log.txt")
+    train_losses, eval_losses, test_long = read_log(log_path)
+    print(f"{task}: train losses first {train_losses[0]:.4f}, last "
+          f"{train_losses[-1]:.4f} over {len(train_losses)} steps; seq-"
+          f"{test_trainer.model.seq_len} test phase {test_long}")
+    if test_long is None or not all(math.isfinite(v)
+                                    for v in test_long.values()):
+        raise AssertionError(f"{task}: no finite 'test - epoch=0' line")
+    if not all(math.isfinite(v) for v in train_losses + eval_losses):
+        raise AssertionError(f"{task}: a logged loss is not finite")
+    if not train_losses[-1] < train_losses[0]:
+        raise AssertionError(f"{task}: the last train_loss is not below the "
+                             f"first")
+    spe = trainer.train_iterator.num_examples // batch_size
+    if trainer.step != run["epochs"] * spe:
+        raise AssertionError(f"{task}: unexpected step count {trainer.step}")
+    if test_trainer.step != trainer.step:
+        raise AssertionError(f"{task}: the test phase did not restore the "
+                             f"run's checkpoint")
+    iters = refine_iters(argv)
+    counts = recipe_counts(
+        log_path, arms=0, arm_epochs=0, loop_epochs=run["epochs"],
+        steps_per_epoch=spe,
+        valid_batches=eval_batches(trainer.valid_iterator.num_examples,
+                                   batch_size),
+        test_batches=eval_batches(trainer.test_iterator.num_examples,
+                                  batch_size),
+        test30_batches=eval_batches(
+            test_trainer.test_iterator.num_examples, batch_size))
+    needed, _ = recipe_decodes(*counts, iters)
+    print(f"{task}: {seconds:.3f} s wall; st_decode launches {launches} "
+          f"(expected {needed}: {counts[0]} train steps, {counts[1]} eval "
+          f"batches, {counts[2]} other forwards, {iters} refinement "
+          f"iterations a forward with the enhancers)")
+    if launches != needed:
+        raise AssertionError(f"{task} did not decode through the kernel on "
+                             f"every decode")
+    check_artifacts(save_dir)
+    step = step_ms(trainer, batch_size)
+    print(f"{task}: median train step {step:.2f} ms at B={batch_size}")
+    return dict(launches=launches, seconds=seconds, step_ms=step,
+                train_sequences=trainer.train_iterator.num_examples,
+                test_sequences=test_trainer.test_iterator.num_examples)
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--parent", default=None,
@@ -844,6 +1039,8 @@ def main(argv=None):
         print(f"torch {torch.__version__} cuda {torch.version.cuda} "
               f"device {kind} count {torch.cuda.device_count()}")
         use_full_f32()
+
+    generation = start_generation()
 
     with phase("build"):
         parent_build = (start_parent_build(os.path.abspath(args.parent))
@@ -879,6 +1076,17 @@ def main(argv=None):
               f"batch {rec['eval_ms']:.2f} ms with the enhancers, "
               f"{rec['eval_plain_ms']:.2f} ms without")
 
+    with phase("tasks"):
+        finish_generation(generation)
+        tasks = {}
+        for task, run in TASK_RUNS.items():
+            data_dir = DATA_DIR if run["generate"] is None else \
+                generated_dir(task)
+            tasks[task] = run_task(task, data_dir)
+        print(f"tasks on {smi}: " + "; ".join(
+            f"{t} step {r['step_ms']:.2f} ms, {r['launches']} launches"
+            for t, r in tasks.items()))
+
     with phase("kernels"):
         main_path = timings[TIMED_SHAPES[0]]
         seq30 = timings[2600, 32, 16, 2, 3]
@@ -903,6 +1111,12 @@ def main(argv=None):
                     "tangent_max_rel_err": jvp_rel, **jvp_times},
             "recipe_launches": rec["launches"],
             "recipe_refine_launches": rec["refine_launches"],
+            "task_launches": {t: r["launches"] for t, r in tasks.items()},
+            "task_shapes": [dict(
+                zip(("n", "img", "tmpl", "objects", "ch"), shape),
+                **{k: timings[shape][k] for k in (
+                    "ms", "plain_ms", "bound_ms", "share_of_bound")})
+                for shape in TIMED_SHAPES[3:]],
         }]}))
 
     print(json.dumps({"ok": True, "device": {

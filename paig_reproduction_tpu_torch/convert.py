@@ -7,9 +7,12 @@ the params), so this module needs numpy only. Layout changes:
 * Dense ``kernel (in, out)`` -> ``weight (out, in)``;
 * Conv ``kernel (H, W, I, O)`` -> ``weight (O, I, H, W)``;
 * top-level leaves (``log_k``, ``log_equil``, ``log_g``, ``log_m``,
-  ``frame_offset``) keep their names.
+  ``frame_offset``) keep their names; each task's tree holds its own cell's
+  (spring: ``log_k``, ``log_equil``; gravity: ``log_g``, ``log_m``;
+  bouncing: none), as the port's model does.
 
-Module names map as ``ShallowUNet_0`` -> ``unet``, ``TorchConv_<i>`` ->
+Module names map as ``ShallowUNet_0`` (or the deep ``UNet_0`` of 40 px and
+larger inputs) -> ``unet``, ``TorchConv_<i>`` ->
 ``convs.<i>`` (flax's inner ``Conv_0`` is dropped) and ``TorchDense_<i>``
 -> ``dense.<i>``; the top-level names (``encoder``, ``velocity_encoder``,
 ``var_net_*``) are the same in both packages.
@@ -26,7 +29,7 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-_RENAMES = {"ShallowUNet_0": "unet"}
+_RENAMES = {"ShallowUNet_0": "unet", "UNet_0": "unet"}
 _INDEXED = (("TorchConv_", "convs."), ("TorchDense_", "dense."))
 
 

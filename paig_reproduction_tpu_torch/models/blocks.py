@@ -1,9 +1,9 @@
 """Neural building blocks as ``torch.nn`` modules (NCHW inside).
 
 Counterparts of ``paig_reproduction_tpu/models/blocks.py``:
-``TorchDense``, ``TorchConv``, ``ShallowUNet``, ``ConvolutionalEncoder``,
-``VelocityEncoder`` and ``VariableFromNetwork``. The deep ``UNet`` (for
-inputs of 40 px and more) comes with the mnist task.
+``TorchDense``, ``TorchConv``, ``ShallowUNet`` (inputs under 40 px),
+``UNet`` (40 px and more), ``ConvolutionalEncoder``, ``VelocityEncoder``
+and ``VariableFromNetwork``.
 
 Every layer draws its kernel and bias from U(+-1/sqrt(fan_in)), torch's own
 Linear/Conv2d default, from an explicit ``torch.Generator``. Weights can
@@ -94,14 +94,67 @@ class ShallowUNet(nn.Module):
         return F.relu(c[12](x))
 
 
+class UNet(nn.Module):
+    """Three-level UNet for inputs of 40 px and more: channel progression
+    h/2h/4h/8h down, 8h -> 2h and skip concatenations up, bilinear-resize
+    upsampling, no ReLU after the post-resize convs (9, 12 and 15) and none
+    on the final 1x1 conv."""
+
+    def __init__(self, in_ch: int, hidden: int = 16, out_features: int = 2,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        h = hidden
+        shapes = [(in_ch, h), (h, h), (h, 2 * h), (2 * h, 2 * h),
+                  (2 * h, 4 * h), (4 * h, 4 * h), (4 * h, 8 * h),
+                  (8 * h, 8 * h), (8 * h, 2 * h), (6 * h, 4 * h),
+                  (4 * h, 4 * h), (4 * h, 2 * h), (4 * h, 2 * h),
+                  (2 * h, 2 * h), (2 * h, 2 * h), (3 * h, h), (h, h)]
+        self.convs = nn.ModuleList(
+            [TorchConv(i, o, generator=generator) for i, o in shapes]
+            + [TorchConv(h, out_features, kernel_size=1,
+                         generator=generator)])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:  # [N, C, H, W]
+        c = self.convs
+        height, width = x.shape[2], x.shape[3]
+        x = F.relu(c[0](x))
+        x1 = F.relu(c[1](x))
+        x = _max_pool2(x1)
+        x = F.relu(c[2](x))
+        x2 = F.relu(c[3](x))
+        x = _max_pool2(x2)
+        x = F.relu(c[4](x))
+        x3 = F.relu(c[5](x))
+        x = _max_pool2(x3)
+        x = F.relu(c[6](x))
+        x = F.relu(c[7](x))
+
+        x = c[8](resize_bilinear(x, (height // 4, width // 4)))
+        x = torch.cat([x, x3], dim=1)                           # 2h + 4h
+        x = F.relu(c[9](x))
+        x = F.relu(c[10](x))
+
+        x = c[11](resize_bilinear(x, (height // 2, width // 2)))
+        x = torch.cat([x, x2], dim=1)                           # 2h + 2h
+        x = F.relu(c[12](x))
+        x = F.relu(c[13](x))
+
+        x = c[14](resize_bilinear(x, (height, width)))
+        x = torch.cat([x, x1], dim=1)                           # 2h + h
+        x = F.relu(c[15](x))
+        x = F.relu(c[16](x))
+        return c[17](x)
+
+
 class ConvolutionalEncoder(nn.Module):
     """UNet attention-mask encoder -> per-object 2D pixel coordinates.
 
-    The UNet emits one mask logit per object; a constant ones channel is
-    appended for the background; softmax over channels; each object mask
-    multiplies the input frame; objects are folded into the batch for a
-    shared 3-layer MLP coordinate head that reads the masked frame in
-    (H, W, C) order; the output is tanh * (W/2) + (W/2).
+    The UNet (``ShallowUNet`` under 40 px, ``UNet`` from 40 px) emits one
+    mask logit per object; a constant ones channel is appended for the
+    background; softmax over channels; each object mask multiplies the
+    input frame; objects are folded into the batch for a shared 3-layer MLP
+    coordinate head that reads the masked frame in (H, W, C) order, 2x2
+    average-pooled from 40 px; the output is tanh * (W/2) + (W/2).
 
     With ``0 < active_slots < n_objs`` only the first ``active_slots``
     slots take part in the softmax: the others' logits become -1e6 (a hard
@@ -117,18 +170,20 @@ class ConvolutionalEncoder(nn.Module):
                  active_slots: int = 0, slot_gate_soft: float = 0.0):
         super().__init__()
         height, width = input_hw
-        if width >= 40:
-            raise NotImplementedError(
-                "inputs of 40 px and more use the deep UNet, which is not "
-                "ported yet")
         self.input_hw = tuple(input_hw)
         self.n_objs = n_objs
         self.out_features = out_features
         self.active_slots = active_slots
         self.slot_gate_soft = slot_gate_soft
-        self.unet = ShallowUNet(in_ch, 8, n_objs, generator=generator)
+        self.small = width < 40
+        if self.small:
+            self.unet = ShallowUNet(in_ch, 8, n_objs, generator=generator)
+            head_in = height * width * in_ch
+        else:
+            self.unet = UNet(in_ch, 16, n_objs, generator=generator)
+            head_in = (height // 2) * (width // 2) * in_ch
         self.dense = nn.ModuleList([
-            TorchDense(height * width * in_ch, hidden_dim, generator),
+            TorchDense(head_in, hidden_dim, generator),
             TorchDense(hidden_dim, hidden_dim, generator),
             TorchDense(hidden_dim, out_features, generator)])
 
@@ -151,7 +206,8 @@ class ConvolutionalEncoder(nn.Module):
         masked = enc_masks[:, :o].transpose(0, 1)[:, :, None] * inp[None]
         masked = masked.reshape(o * n, ch, height, width)
 
-        x = masked.permute(0, 2, 3, 1).reshape(o * n, -1)
+        x = masked if self.small else F.avg_pool2d(masked, 2, 2)
+        x = x.permute(0, 2, 3, 1).reshape(o * n, -1)
         x = F.relu(self.dense[0](x))
         x = F.relu(self.dense[1](x))
         x = self.dense[2](x)                                    # [o*N, 2]

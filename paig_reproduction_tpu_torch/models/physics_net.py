@@ -20,10 +20,11 @@ The JAX model's extension fields are ported: the discovery aids
 (``template_center_loss``, ``coarse_loss``, ``vel_anchor``,
 ``pos_consistency``, ``recons_warmup``, ``reference_quirks``), the learned
 ``frame_offset`` (``learn_frame_offset``) and the inference enhancers
-(``init_state_fit``, ``refine_enc_pos``, ``refine_recons_pos``). bf16
-(``compute_dtype``) is not ported yet: a value other than float32 raises
-``NotImplementedError``, as does a cell the port lacks (the LSTM, the
-bouncing and gravity cells).
+(``init_state_fit``, ``refine_enc_pos``, ``refine_recons_pos``). The three
+physics cells are ported, each with the JAX model's parameters (spring:
+``log_k``, ``log_equil``; gravity: ``log_g`` and the frozen ``log_m``;
+bouncing: none). bf16 (``compute_dtype``) is not ported yet: a value other
+than float32 raises ``NotImplementedError``, as does the LSTM cell.
 """
 from __future__ import annotations
 
@@ -47,7 +48,10 @@ from paig_reproduction_tpu_torch.models.decoder import (
 )
 from paig_reproduction_tpu_torch.ops import cells
 from paig_reproduction_tpu_torch.ops.pos_refine import refine_positions
-from paig_reproduction_tpu_torch.ops.state_fit import fit_initial_state
+from paig_reproduction_tpu_torch.ops.state_fit import (
+    fit_initial_state,
+    fit_initial_state_bouncing,
+)
 
 # Latent units per task: coord_units = n_objects * 2 (dims) * 2 (pos+vel).
 COORD_UNITS = {
@@ -82,6 +86,13 @@ UNPORTED_FIELDS = ("compute_dtype",)
 # The inference enhancers: parameter-free, so a model without them
 # (``without_enhancers``) shares every parameter.
 ENHANCERS = ("init_state_fit", "refine_enc_pos", "refine_recons_pos")
+# Each cell's learnable physical parameters (scalars, log-space, zero at
+# init), as the JAX model creates them.
+CELL_PARAMS = {
+    "spring_ode_cell": ("log_k", "log_equil"),
+    "gravity_ode_cell": ("log_g", "log_m"),
+    "bouncing_ode_cell": (),
+}
 
 
 class PhysicsNet(nn.Module):
@@ -168,8 +179,8 @@ class PhysicsNet(nn.Module):
         self.velocity_encoder = (
             VelocityEncoder(alt_vel, input_steps, o, generator)
             if input_steps > 1 else None)
-        self.log_k = nn.Parameter(torch.zeros(()))
-        self.log_equil = nn.Parameter(torch.zeros(()))
+        for name in CELL_PARAMS[cell_type]:
+            setattr(self, name, nn.Parameter(torch.zeros(())))
         if self.learn_frame_offset:
             self.frame_offset = nn.Parameter(
                 torch.zeros(self.coord_units // 2))
@@ -260,14 +271,21 @@ class PhysicsNet(nn.Module):
         # --- rollout, then one batched decode of every rollout frame ------
         step_fn, dt = cells.CELLS[self.cell_type]
         params = cells.CellParams.initial(inp.device)._replace(
-            log_k=self.log_k, log_equil=self.log_equil)
+            **{name: getattr(self, name)
+               for name in CELL_PARAMS[self.cell_type]})
         frame_off = (self.frame_offset if self.learn_frame_offset else
                      torch.zeros(cu2, dtype=inp.dtype, device=inp.device))
         pos_phys0, vel0 = pos + frame_off, vel
         if self.init_state_fit > 0 and s > 1:
-            pos_phys0, vel0 = fit_initial_state(
-                step_fn, params, obs_win + frame_off, vel, dt,
-                self.cell_substeps, self.init_state_fit)
+            if self.cell_type == "bouncing_ode_cell":
+                # Reflections break the Gauss-Newton linearization; the
+                # unfolded-coordinate fit is exact for free flight.
+                pos_phys0, vel0 = fit_initial_state_bouncing(
+                    obs_win + frame_off, vel, dt)
+            else:
+                pos_phys0, vel0 = fit_initial_state(
+                    step_fn, params, obs_win + frame_off, vel, dt,
+                    self.cell_substeps, self.init_state_fit)
         n_steps = self.pred_steps + self.extrap_steps
         p, v = pos_phys0, vel0
         pos_roll, vel_roll = [], []

@@ -5,15 +5,18 @@ with ``SUBSTEPS`` = 5 substeps per frame at ``dt/5`` and physical
 parameters stored in log-space. State layout: ``pos``/``vel`` are
 ``[batch, n_objs * 2]``, object-major ``[x1, y1, x2, y2, ...]``.
 
-This slice ports the spring cell; the bouncing and gravity cells come with
-their tasks.
+The three cells: spring (2 objects), bouncing (free flight with elastic wall
+reflections) and gravity (3 bodies, inverse square). ``numpy_generator_*``
+are the dataset generators' own integrators, in float64 numpy.
 """
 from __future__ import annotations
 
+import functools
 import math
 import os
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 SUBSTEPS = 5  # Euler substeps per frame
@@ -27,8 +30,14 @@ SPRING_FORCE_CLAMP = float(os.environ.get("PAIG_SPRING_FORCE_CLAMP",
                                           "1e3"))
 SPRING_SQRT_EPS = float(os.environ.get("PAIG_SPRING_SQRT_EPS", "1e-8"))
 
-# Default integration step per frame of the spring cell.
+# Default integration step per frame of each cell.
 SPRING_DT = 0.3
+BOUNCING_DT = 0.3
+GRAVITY_DT = 0.5
+
+# Bouncing-cell wall geometry: walls at 0 and 32 px, object radius 2 px.
+WALL_SIZE = 32.0
+BALL_RADIUS = 2.0
 
 
 class _ClipCotangent(torch.autograd.Function):
@@ -111,8 +120,104 @@ def spring_step(params: CellParams, pos: torch.Tensor, vel: torch.Tensor,
     return p.reshape(pos.shape[0], -1), v.reshape(vel.shape[0], -1)
 
 
-# Cell registry: name -> (step function, default dt). "lstm" is a model-level
-# cell; the bouncing and gravity cells are not ported yet.
+def bouncing_step(params: CellParams, pos: torch.Tensor, vel: torch.Tensor,
+                  dt: float = BOUNCING_DT, substeps: int = SUBSTEPS):
+    """One frame of free flight with elastic wall bounces; no learnable
+    parameters. Per coordinate and substep, a position past a wall
+    (``BALL_RADIUS`` from 0 or ``WALL_SIZE``) is reflected about it and
+    its velocity negated."""
+    del params
+    h = dt / substeps
+    hi = WALL_SIZE - BALL_RADIUS
+    lo = BALL_RADIUS
+    p, v = pos, vel
+    for _ in range(substeps):
+        p = p + h * v
+        hit_hi = p > hi
+        hit_lo = p < lo
+        v = torch.where(hit_hi | hit_lo, -v, v)
+        p = torch.where(hit_hi, 2.0 * hi - p, p)
+        p = torch.where(hit_lo, 2.0 * lo - p, p)
+    return p, v
+
+
+@functools.lru_cache(maxsize=64)
+def _constant(value: float, dtype, device) -> torch.Tensor:
+    """A 0-dim tensor of `value`, made once per dtype and device (making it
+    per call would copy it from the host each time)."""
+    return torch.tensor(value, dtype=dtype, device=device)
+
+
+def _clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """``jnp.clip``: max then min, whose derivative at a bound is 1/2, as
+    JAX's (``torch.clamp``'s is 1)."""
+    return torch.minimum(torch.maximum(x, _constant(lo, x.dtype, x.device)),
+                         _constant(hi, x.dtype, x.device))
+
+
+def gravity_step(params: CellParams, pos: torch.Tensor, vel: torch.Tensor,
+                 dt: float = GRAVITY_DT, substeps: int = SUBSTEPS):
+    """One frame of 3-body inverse-square dynamics. A = exp(log_g) *
+    exp(2 log_m) is recomputed from the live parameters on every call, so
+    gradients reach log_g. Each pair's squared distance is clamped to
+    [1e-1, 1e5] before the square root and the distance to [1, 170] before
+    it is cubed."""
+    a = torch.exp(params.log_g) * torch.exp(2.0 * params.log_m)
+    h = dt / substeps
+    p = pos.reshape(pos.shape[0], 3, 2)
+    v = vel.reshape(vel.shape[0], 3, 2)
+    for _ in range(substeps):
+        # The three pairs at once: rows p0-p1, p1-p2, p2-p0, each pair's
+        # force vec/|vec|^3 with the clamps; body i feels its own pair's
+        # force less the pair before it's (f01 - f20, f12 - f01, f20 - f12).
+        vec = p - torch.roll(p, -1, dims=1)                         # [B,3,2]
+        sq = _clip(torch.sum(vec * vec, dim=-1, keepdim=True), 1e-1, 1e5)
+        norm = _clip(torch.sqrt(sq), 1.0, 170.0)
+        pair = vec / (norm ** 3)
+        force = pair - torch.roll(pair, 1, dims=1)
+        v = v - h * a * force
+        p = p + h * v
+    return p.reshape(pos.shape[0], -1), v.reshape(vel.shape[0], -1)
+
+
+# Cell registry: name -> (step function, default dt). "lstm" is a
+# model-level cell, not ported yet.
 CELLS = {
     "spring_ode_cell": (spring_step, SPRING_DT),
+    "bouncing_ode_cell": (bouncing_step, BOUNCING_DT),
+    "gravity_ode_cell": (gravity_step, GRAVITY_DT),
 }
+
+
+def numpy_generator_spring(poss, vels, k, equil, dt, ode_steps):
+    """The spring dataset generator's integrator (float64 numpy)."""
+    poss = np.array(poss, dtype=np.float64)
+    vels = np.array(vels, dtype=np.float64)
+    for _ in range(ode_steps):
+        norm = np.linalg.norm(poss[0] - poss[1])
+        direction = (poss[0] - poss[1]) / norm
+        F = k * (norm - 2 * equil) * direction
+        vels[0] = vels[0] - dt / ode_steps * F
+        vels[1] = vels[1] + dt / ode_steps * F
+        poss = poss + dt / ode_steps * vels
+    return poss, vels
+
+
+def numpy_generator_gravity(poss, vels, g, m, dt, ode_steps):
+    """The 3-body dataset generator's integrator (float64 numpy)."""
+    poss = np.array(poss, dtype=np.float64)
+    vels = np.array(vels, dtype=np.float64)
+    for _ in range(ode_steps):
+        n01 = np.linalg.norm(poss[0] - poss[1])
+        n12 = np.linalg.norm(poss[1] - poss[2])
+        n20 = np.linalg.norm(poss[2] - poss[0])
+        v01 = poss[0] - poss[1]
+        v12 = poss[1] - poss[2]
+        v20 = poss[2] - poss[0]
+        F = np.array([v01 / n01 ** 3 - v20 / n20 ** 3,
+                      v12 / n12 ** 3 - v01 / n01 ** 3,
+                      v20 / n20 ** 3 - v12 / n12 ** 3])
+        F = -g * m * m * F
+        vels = vels + dt / ode_steps * F
+        poss = poss + dt / ode_steps * vels
+    return poss, vels

@@ -1,14 +1,15 @@
 """Closed-form physical-parameter identification from encoder positions.
 
-The port's numpy copy of the spring part of
-``paig_reproduction_tpu/ops/identify.py``, which the train-time physics
-self-identification (``--fit_physics_every``, ``train/recipes.py``) uses.
-Given an encoder, the spring constant and equilibrium length are
-identifiable from its own position sequences: a trajectory-space fit
-(coarse-to-fine grid over (k, equil), scoring rollouts from
-finite-difference initial velocities against the encoder positions)
-integrates instead of double-differentiating, which would bias k toward
-zero under encoder noise. The gravity fit comes with the 3bp_color task.
+The port's numpy copy of ``paig_reproduction_tpu/ops/identify.py``, which
+the train-time physics self-identification (``--fit_physics_every``,
+``train/recipes.py``) uses. Given an encoder, the physical parameters are
+identifiable from its own position sequences: the spring constant and
+equilibrium length (a_par = -k*norm + 2*k*equil), and gravity's
+A = g*m^2 (a = -A * sum_j d/|d|^3). The trajectory-space fits
+(coarse-to-fine grids, scoring rollouts from finite-difference initial
+velocities against the encoder positions) integrate instead of
+double-differentiating, which would bias the parameters toward zero under
+encoder noise; ``fit_gravity`` is the pointwise fit.
 
 Pure numpy on host arrays.
 """
@@ -23,6 +24,7 @@ import numpy as np
 # grid agree.
 SPRING_K_BOUNDS = (0.25, 16.0)
 SPRING_E_BOUNDS = (1.0, 20.0)
+GRAVITY_A_BOUNDS = (2.0, 400.0)
 
 
 def on_bounds(value, bounds, rel=0.02) -> bool:
@@ -105,4 +107,84 @@ def fit_spring_trajectory(enc, dt, input_steps=4, horizon=6, substeps=5):
                                 np.log(ks[min(len(ks) - 1, ik + 1)]), 7))
         es = np.exp(np.linspace(np.log(es[max(0, ie - 1)]),
                                 np.log(es[min(len(es) - 1, ie + 1)]), 7))
+    return best
+
+
+def fit_gravity(enc, dt):
+    """enc: [N, T, 6]. Returns (A = g*m^2, residual): the pointwise fit of
+    the generator law a_i = -g m^2 sum_j (p_i - p_j)/|p_i - p_j|^3 to
+    central-difference accelerations."""
+    p = enc.reshape(enc.shape[0], enc.shape[1], 3, 2)
+    acc = (p[:, 2:] - 2 * p[:, 1:-1] + p[:, :-2]) / dt ** 2
+    mid = p[:, 1:-1]
+    xs, ys = [], []
+    for i in range(3):
+        f = np.zeros_like(mid[:, :, i])
+        for j in range(3):
+            if i == j:
+                continue
+            d = mid[:, :, i] - mid[:, :, j]
+            n = np.linalg.norm(d, axis=-1, keepdims=True)
+            f = f + d / (n ** 3 + 1e-9)
+        # acc_i = -A * f, regressed componentwise
+        xs.append(-f.reshape(-1, 2).ravel())
+        ys.append(acc[:, :, i].reshape(-1, 2).ravel())
+    x = np.concatenate(xs)
+    y = np.concatenate(ys)
+    A = float(np.dot(x, y) / (np.dot(x, x) + 1e-12))
+    rms = float(np.sqrt(np.mean((A * x - y) ** 2)))
+    return A, rms
+
+
+def gravity_trajectory_error(enc, dt, A, input_steps=4, horizon=12,
+                             substeps=5):
+    """fit_gravity_trajectory's objective for one candidate A, for the same
+    candidate-against-current comparison as spring_trajectory_error. The
+    distance is floored as the cell clamps it, and the initial velocity is
+    the second-order one-sided difference (the first-order one equals
+    v - a*dt/2, a bias correlated with A)."""
+    p = enc.reshape(enc.shape[0], enc.shape[1], 3, 2)
+    i0 = input_steps - 1
+    horizon = min(horizon, enc.shape[1] - input_steps)
+    h = dt / substeps
+    err = 0.0
+    poss = p[:, i0].copy()
+    vels = (3 * p[:, i0] - 4 * p[:, i0 - 1] + p[:, i0 - 2]) / (2 * dt)
+    for t in range(horizon):
+        for _ in range(substeps):
+            acc = np.zeros_like(poss)
+            for i in range(3):
+                for j in range(3):
+                    if i == j:
+                        continue
+                    d = poss[:, j] - poss[:, i]
+                    n = np.linalg.norm(d, axis=-1, keepdims=True)
+                    n = np.clip(n, 1.0, 170.0)
+                    acc[:, i] += A * d / n ** 3
+            vels = vels + h * acc
+            poss = poss + h * vels
+        err += np.median(
+            np.sum((poss - p[:, input_steps + t]) ** 2, axis=(1, 2)))
+    return float(err)
+
+
+def fit_gravity_trajectory(enc, dt, input_steps=4, horizon=12,
+                           substeps=5):
+    """Trajectory-space 1-D fit of A = g*m^2 over a coarse-to-fine log
+    grid inside GRAVITY_A_BOUNDS. Returns (A, error)."""
+    def score(A):
+        return gravity_trajectory_error(enc, dt, A,
+                                        input_steps=input_steps,
+                                        horizon=horizon,
+                                        substeps=substeps)
+
+    grid = np.exp(np.linspace(*map(np.log, GRAVITY_A_BOUNDS), 13))
+    best = None
+    for _ in range(3):   # coarse-to-fine
+        scores = np.array([score(a) for a in grid])
+        ia = int(scores.argmin())
+        best = (float(grid[ia]), float(scores[ia]))
+        grid = np.exp(np.linspace(
+            np.log(grid[max(0, ia - 1)]),
+            np.log(grid[min(len(grid) - 1, ia + 1)]), 9))
     return best

@@ -12,6 +12,11 @@ The Jacobian of the window rollout comes from one forward-mode JVP: the
 functional) cell step, so one rollout of ``2 * cu2 * B`` states gives every
 column.
 
+The bouncing cell's reflections break that linearization, so its fit is
+``fit_initial_state_bouncing``: free flight between elastic walls is a
+straight line in unfolded coordinates, fitted in closed form under each
+bounce hypothesis, after ``align_slot_identities`` has undone slot swaps.
+
 Gradients are straight-through: the forward value is the fitted state, the
 backward pass sees the naive initializer (last observed position and the MLP
 velocity). The solve itself runs on detached inputs.
@@ -20,7 +25,11 @@ from __future__ import annotations
 
 import torch
 
-from paig_reproduction_tpu_torch.ops.cells import CellParams
+from paig_reproduction_tpu_torch.ops.cells import (
+    BALL_RADIUS,
+    WALL_SIZE,
+    CellParams,
+)
 
 
 def fit_initial_state(step_fn, cell_params: CellParams, obs: torch.Tensor,
@@ -96,5 +105,115 @@ def fit_initial_state(step_fn, cell_params: CellParams, obs: torch.Tensor,
     pos_f = torch.where(ok, pos_f, naive_p.detach())
     vel_f = torch.where(ok, vel_f, naive_v.detach())
     # Straight-through: forward = fitted, backward = naive.
+    return (naive_p + (pos_f - naive_p).detach(),
+            naive_v + (vel_f - naive_v).detach())
+
+
+def align_slot_identities(obs: torch.Tensor) -> torch.Tensor:
+    """Permutation-consistent observation window for 2-object tasks.
+
+    obs: [B, s, 4] encoded positions, object-major [x1, y1, x2, y2]. The
+    encoder binds slots by appearance and can swap them for a frame where
+    objects cross. Frames s-2..0 are aligned backward to frame s-1 (the
+    rollout's identity frame, left as it is): each keeps or swaps its two
+    objects, swapping only when that is closer to the aligned successor by
+    a clear margin (under half the cost), since for near-coincident objects
+    either assignment fits. Exact for 2 objects; other shapes pass through.
+    """
+    b, s, cu2 = obs.shape
+    if cu2 != 4 or s < 2:
+        return obs
+    p = obs.reshape(b, s, 2, 2)
+    ref = p[:, -1]
+    aligned = [ref]
+    for t in range(s - 2, -1, -1):
+        pt = p[:, t]
+        sw = pt.flip(1)
+        cost_id = torch.sum((pt - ref) ** 2, dim=(1, 2))
+        cost_sw = torch.sum((sw - ref) ** 2, dim=(1, 2))
+        ref = torch.where((cost_sw < 0.5 * cost_id)[:, None, None], sw, pt)
+        aligned.append(ref)
+    return torch.stack(aligned[::-1], dim=1).reshape(b, s, cu2)
+
+
+def fit_initial_state_bouncing(obs: torch.Tensor, vel_init: torch.Tensor,
+                               dt: float, accept_rms: float = 0.75,
+                               wall_lo: float = BALL_RADIUS,
+                               wall_hi: float = WALL_SIZE - BALL_RADIUS):
+    """Reflection-aware initial-state fit for the bouncing cell.
+
+    Reflecting the observations before a bounce across its wall (u = 2w - p)
+    makes free flight a straight line u_t = u_0 + v t dt per coordinate. At
+    most one bounce per coordinate fits in an input window, so every
+    hypothesis (none, or one at either wall before frame j, j = 1..s-1) is
+    solved by closed-form least squares. A bounce hypothesis is admissible
+    only if its line crosses the wall inside the (j-1, j) frame interval,
+    and it is taken only when its residual is under half the no-bounce
+    one. The fitted last-frame position is clamped to the walls.
+
+    obs: [B, s, cu2] positions in the physical frame; vel_init: [B, cu2] the
+    MLP velocity (the naive fallback). Returns (pos, vel) at frame s-1.
+    Per-coordinate acceptance: a coordinate whose best hypothesis leaves an
+    rms residual above ``accept_rms`` px, or is not finite, keeps the naive
+    initializer. Gradients: straight-through to the naive path.
+    """
+    b, s, cu2 = obs.shape
+    if s < 2:
+        return obs[:, -1], vel_init
+    dtype, dev = obs.dtype, obs.device
+    y = align_slot_identities(obs.detach()).transpose(1, 2)      # [B, cu2, s]
+
+    # Hypotheses [H = 1 + 2(s-1)]: frames t < j reflected across a wall.
+    js = torch.arange(1, s, device=dev)
+    t_idx = torch.arange(s, device=dev)
+    refl = t_idx[None, :] < js[:, None]                           # [s-1, s]
+    masks = torch.cat([torch.zeros((1, s), dtype=torch.bool, device=dev),
+                       refl, refl])                                # [H, s]
+    walls = torch.cat([torch.zeros(1, dtype=dtype, device=dev),
+                       torch.full((s - 1,), wall_lo, dtype=dtype, device=dev),
+                       torch.full((s - 1,), wall_hi, dtype=dtype,
+                                  device=dev)])                    # [H]
+    u = torch.where(masks[:, None, None, :],
+                    2.0 * walls[:, None, None, None] - y[None],
+                    y[None])                                       # [H,B,cu2,s]
+
+    ts = t_idx.to(dtype) * dt                                      # [s]
+    sx, sxx = torch.sum(ts), torch.sum(ts * ts)
+    su = torch.sum(u, dim=-1)
+    sxu = torch.sum(u * ts, dim=-1)
+    denom = s * sxx - sx * sx
+    slope = (s * sxu - sx * su) / denom                            # [H,B,cu2]
+    icept = (su - slope * sx) / s
+    res = torch.sum((icept[..., None] + slope[..., None] * ts - u) ** 2,
+                    dim=-1)
+
+    # A bounce before frame j must cross its wall inside (j-1, j).
+    t_cross = (walls[:, None, None] - icept) / torch.where(
+        slope == 0.0, torch.full_like(slope, 1e-9), slope)
+    j_all = torch.cat([torch.ones(1, dtype=js.dtype, device=dev), js, js])
+    t_lo = (j_all - 1).to(dtype)[:, None, None] * dt
+    t_hi = j_all.to(dtype)[:, None, None] * dt
+    consistent = (t_cross >= t_lo) & (t_cross <= t_hi)
+    consistent[0] = True                                 # no bounce: always
+    res = torch.where(consistent, res, torch.full_like(res, float("inf")))
+
+    # Prefer free flight unless a bounce explains the window clearly better.
+    res_none = res[0]
+    res_bounce, h_bounce = torch.min(res[1:], dim=0)
+    h_best = torch.where(res_bounce < 0.5 * res_none, 1 + h_bounce,
+                         torch.zeros_like(h_bounce))              # [B, cu2]
+
+    def take(a):
+        return torch.gather(a, 0, h_best[None])[0]
+
+    res_b, slope_b, icept_b = take(res), take(slope), take(icept)
+    pos_f = torch.clamp(icept_b + slope_b * (s - 1) * dt, wall_lo, wall_hi)
+    vel_f = slope_b
+
+    naive_p, naive_v = obs[:, -1], vel_init
+    ok = (torch.isfinite(pos_f) & torch.isfinite(vel_f)
+          & (res_b < (accept_rms ** 2) * s))
+    pos_f = torch.where(ok, pos_f, naive_p.detach())
+    vel_f = torch.where(ok, vel_f, naive_v.detach())
     return (naive_p + (pos_f - naive_p).detach(),
             naive_v + (vel_f - naive_v).detach())

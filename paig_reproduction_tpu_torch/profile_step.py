@@ -1,9 +1,12 @@
 """Where the time of one train step goes, on a CUDA card.
 
     python -m paig_reproduction_tpu_torch.profile_step [--batch_size 100]
+        [--task spring_color] [--data_dir DIR] [--autoencoder_loss 3.0]
+        [--init_state_fit N] [--learn_frame_offset]
 
-Builds the spring_color model as the CLI does (seed 0, the tracked
-dataset), takes a few warm-up steps, then traces ``--steps`` train steps
+Builds the task's model as the CLI does (seed 0, the task's train file
+under ``--data_dir``, the tracked datasets by default), with the given
+model fields, takes a few warm-up steps, then traces ``--steps`` train steps
 with ``torch.profiler``. Prints the median untraced step time, the traced
 host time per step, the device's busy time per step (the union of its
 kernels' intervals) and its idle share of the untraced step, the number of
@@ -57,20 +60,30 @@ def main(argv=None):
     parser.add_argument("--batch_size", type=int, default=100)
     parser.add_argument("--steps", type=int, default=5)
     parser.add_argument("--top", type=int, default=15)
+    parser.add_argument("--task", default="spring_color",
+                        choices=sorted(TASK_TABLE))
+    parser.add_argument("--data_dir",
+                        default=os.path.join(REPO, "data", "datasets"))
+    parser.add_argument("--autoencoder_loss", type=float, default=3.0)
+    parser.add_argument("--init_state_fit", type=int, default=0)
+    parser.add_argument("--learn_frame_offset", action="store_true")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA device")
 
     (data_file, _, cell_type, seq_len, _, input_steps, pred_steps,
-     input_size) = TASK_TABLE["spring_color"]
-    model = PhysicsNet(task="spring_color", cell_type=cell_type,
+     input_size) = TASK_TABLE[args.task]
+    model = PhysicsNet(task=args.task, cell_type=cell_type,
                        seq_len=seq_len, input_steps=input_steps,
-                       pred_steps=pred_steps, autoencoder_loss=3.0,
+                       pred_steps=pred_steps,
+                       autoencoder_loss=args.autoencoder_loss,
                        color=True, input_size=input_size,
+                       init_state_fit=args.init_state_fit,
+                       learn_frame_offset=args.learn_frame_offset,
                        generator=torch.Generator().manual_seed(0))
     trainer = Trainer(model, device="cuda")
-    trainer.get_data(get_iterators(
-        os.path.join(REPO, "data", "datasets", data_file), conv=True))
+    trainer.get_data(get_iterators(os.path.join(args.data_dir, data_file),
+                                   conv=True))
     trainer.build_optimizer(6e-4, "rmsprop", True, epochs=2,
                             steps_per_epoch=25)
     rs = np.random.RandomState(0)
@@ -104,7 +117,7 @@ def main(argv=None):
                if e.device_type == torch.autograd.DeviceType.CUDA
                and not getattr(e, "is_user_annotation", False)]
     per_step = wall_us / args.steps / 1e3
-    print(f"B={args.batch_size}, {args.steps} traced steps on "
+    print(f"{args.task}, B={args.batch_size}, {args.steps} traced steps on "
           f"{torch.cuda.get_device_name(0)}")
     untraced_ms = float(np.median(untraced))
     print(f"untraced step: median {untraced_ms:.3f} ms over 10")

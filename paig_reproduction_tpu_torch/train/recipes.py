@@ -207,16 +207,18 @@ class RecipeMixin:
     # ----- train-time physics identification ---------------------------------
     def _identify_physics(self, batch_size):
         """Train-time physics self-identification (--fit_physics_every): fit
-        (k, equil) by trajectory least squares on the model's own encoder
-        positions (ops/identify.py), corrected by the rendered appearance
-        offsets and slot-aligned, and install them when the fit is interior
-        to the search grid and explains the trajectories decisively better
-        (error under 0.75x) than the current parameters. With
-        --learn_frame_offset the offsets go into frame_offset. The first
-        accepted fit after the --aux_on_recons trigger turns the alignment
-        losses on."""
+        the cell's parameters by trajectory least squares on the model's own
+        encoder positions (ops/identify.py), corrected by the rendered
+        appearance offsets and slot-aligned: (k, equil) for the spring cell,
+        A = g*m^2 for the gravity cell (installed as log_g, log_m being
+        frozen at 0); the bouncing cell has none. A fit is installed when it
+        is interior to the search grid and explains the trajectories
+        decisively better (error under 0.75x) than the current parameters.
+        With --learn_frame_offset the offsets go into frame_offset. The
+        first accepted fit after the --aux_on_recons trigger turns the
+        alignment losses on."""
         m = self.model
-        if m.cell_type != "spring_ode_cell":
+        if m.cell_type not in ("spring_ode_cell", "gravity_ode_cell"):
             return
         _, dt = cells.CELLS[m.cell_type]
         it = self.train_iterator
@@ -230,30 +232,42 @@ class RecipeMixin:
         enc = np.concatenate(encs)                   # [N, t_in, n_objs*2]
         offsets = self._rendered_offsets()
         enc = identify.align_slots(enc + offsets[None, None], m.n_objs)
-        k, equil, err = identify.fit_spring_trajectory(
-            enc, dt, input_steps=m.input_steps, substeps=m.cell_substeps)
-        cur_err = identify.spring_trajectory_error(
-            enc, dt, float(np.exp(m.log_k.item())),
-            float(np.exp(m.log_equil.item())), input_steps=m.input_steps,
-            substeps=m.cell_substeps)
-        if (identify.on_bounds(k, identify.SPRING_K_BOUNDS)
-                or identify.on_bounds(equil, identify.SPRING_E_BOUNDS)):
-            logger.info("fit_physics: rejected (k=%.3f equil=%.3f on "
-                        "search bounds — no interior optimum)", k, equil)
-            return
+        kw = dict(input_steps=m.input_steps, substeps=m.cell_substeps)
+        if m.cell_type == "spring_ode_cell":
+            k, equil, err = identify.fit_spring_trajectory(enc, dt, **kw)
+            cur_err = identify.spring_trajectory_error(
+                enc, dt, float(np.exp(m.log_k.item())),
+                float(np.exp(m.log_equil.item())), **kw)
+            if (identify.on_bounds(k, identify.SPRING_K_BOUNDS)
+                    or identify.on_bounds(equil, identify.SPRING_E_BOUNDS)):
+                logger.info("fit_physics: rejected (k=%.3f equil=%.3f on "
+                            "search bounds — no interior optimum)", k, equil)
+                return
+            fitted = {"log_k": k, "log_equil": equil}
+            found = "k=%.4f equil=%.4f" % (k, equil)
+        else:
+            A, err = identify.fit_gravity_trajectory(enc, dt, **kw)
+            cur_err = identify.gravity_trajectory_error(
+                enc, dt, float(np.exp(m.log_g.item())), **kw)
+            if identify.on_bounds(A, identify.GRAVITY_A_BOUNDS):
+                logger.info("fit_physics: rejected (A=%.3f on search "
+                            "bounds — no interior optimum)", A)
+                return
+            fitted = {"log_g": A}
+            found = "A=g*m^2=%.4f" % A
         if err >= 0.75 * cur_err:
             logger.info("fit_physics: rejected (fit err %.3f not "
                         "decisively under current %.3f)", err, cur_err)
             return
         with torch.no_grad():
-            m.log_k.fill_(float(np.float32(np.log(max(k, 1e-3)))))
-            m.log_equil.fill_(float(np.float32(np.log(max(equil, 1e-3)))))
+            for name, value in fitted.items():
+                getattr(m, name).fill_(
+                    float(np.float32(np.log(max(value, 1e-3)))))
             if m.learn_frame_offset:
                 m.frame_offset.copy_(torch.as_tensor(offsets,
                                                      dtype=torch.float32))
-        logger.info("fit_physics: k=%.4f equil=%.4f "
-                    "(median traj err %.3f, was %.3f)", k, equil, err,
-                    cur_err)
+        logger.info("fit_physics: %s (median traj err %.3f, was %.3f)",
+                    found, err, cur_err)
         if (self.aux_on_recons > 0 and self._aux_triggered
                 and self.aux_warmup_steps >= NEVER):
             self.aux_warmup_steps = self.step

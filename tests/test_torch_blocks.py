@@ -41,13 +41,56 @@ def test_shallow_unet_matches_jax(ch):
                                atol=1e-5)
 
 
+def test_shallow_unet_at_36px_matches_jax():
+    """3bp_color's 36 px frames: pools to 18 and 9, resizes back."""
+    x = _frames(2, 36, 3, seed=7)
+    j_mod = jblocks.ShallowUNet(8, 3)
+    params, state = _init(j_mod, jnp.asarray(x))
+    ref = np.asarray(jax.jit(j_mod.apply)({"params": params}, x))
+    t_mod = tblocks.ShallowUNet(3, 8, 3)
+    t_mod.load_state_dict(state, strict=True)
+    with torch.no_grad():
+        out = t_mod(torch.from_numpy(x).permute(0, 3, 1, 2))
+    np.testing.assert_allclose(out.permute(0, 2, 3, 1).numpy(), ref,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("ch", [1, 3])
+def test_unet_matches_jax(ch):
+    """The deep UNet of 40 px and larger inputs, at mnist_spring_color's
+    64 px: three pools (to 8 px) and resizes to 16, 32 and 64."""
+    x = _frames(2, 64, ch, seed=20 + ch)
+    j_mod = jblocks.UNet(16, 2)
+    params, state = _init(j_mod, jnp.asarray(x))
+    ref = np.asarray(jax.jit(j_mod.apply)({"params": params}, x))
+    t_mod = tblocks.UNet(ch, 16, 2)
+    t_mod.load_state_dict(state, strict=True)
+    with torch.no_grad():
+        out = t_mod(torch.from_numpy(x).permute(0, 3, 1, 2))
+    np.testing.assert_allclose(out.permute(0, 2, 3, 1).numpy(), ref,
+                               atol=1e-5)
+    # no ReLU on the final 1x1 conv
+    assert ref.min() < 0
+
+
 @pytest.mark.parametrize("ch", [1, 3])
 def test_convolutional_encoder_matches_jax(ch):
-    x = _frames(4, 32, ch, seed=10 + ch)
-    j_mod = jblocks.ConvolutionalEncoder(input_hw=(32, 32), n_objs=2)
+    _check_encoder(32, ch, 2, seed=10 + ch)
+
+
+@pytest.mark.parametrize("hw,ch,n_objs", [(36, 3, 3), (64, 3, 2)])
+def test_convolutional_encoder_of_other_tasks_matches_jax(hw, ch, n_objs):
+    """3bp_color's 36 px frames with 3 objects, and mnist_spring_color's
+    64 px frames through the deep UNet and the 2x2-pooled head."""
+    _check_encoder(hw, ch, n_objs, seed=10 + ch + hw)
+
+
+def _check_encoder(hw, ch, n_objs, seed):
+    x = _frames(4, hw, ch, seed=seed)
+    j_mod = jblocks.ConvolutionalEncoder(input_hw=(hw, hw), n_objs=n_objs)
     params, state = _init(j_mod, jnp.asarray(x))
     j_pos, j_masks, j_masked = jax.jit(j_mod.apply)({"params": params}, x)
-    t_mod = tblocks.ConvolutionalEncoder((32, 32), ch, n_objs=2)
+    t_mod = tblocks.ConvolutionalEncoder((hw, hw), ch, n_objs=n_objs)
     t_mod.load_state_dict(state, strict=True)
     with torch.no_grad():
         pos, masks, masked = t_mod(torch.from_numpy(x).permute(0, 3, 1, 2))
@@ -56,11 +99,6 @@ def test_convolutional_encoder_matches_jax(ch):
                                np.asarray(j_masks), atol=1e-5)
     np.testing.assert_allclose(masked.permute(0, 2, 3, 1).numpy(),
                                np.asarray(j_masked), atol=1e-5)
-
-
-def test_convolutional_encoder_refuses_deep_unet_sizes():
-    with pytest.raises(NotImplementedError):
-        tblocks.ConvolutionalEncoder((64, 64), 3)
 
 
 @pytest.mark.parametrize("alt_vel", [False, True])

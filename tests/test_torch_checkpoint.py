@@ -472,3 +472,64 @@ def test_spring500c_optimizer_step_matches_optax(tmp_path):
     for name, p in model.named_parameters():
         np.testing.assert_allclose(p.detach().numpy(), ref[name].numpy(),
                                    rtol=1e-6, atol=1e-7, err_msg=name)
+
+
+BOUNCE = os.path.join(REPO, "data", "datasets", "bouncing",
+                      "color_bounce_vx8_vy8_sl30_r2.npz")
+# runs/bounce_one1's model flags (benchmarks/bounce_one1_test_log.txt), the
+# enhancers included, and the JAX model's fields for them.
+BOUNCE_FLAGS = ["--task=bouncing_balls", "--autoencoder_loss=2.0",
+                "--color", "--pos_consistency=1.0", "--vel_anchor=1.0",
+                "--learn_frame_offset", "--init_state_fit=1",
+                "--refine_enc_pos=4", "--refine_recons_pos=4"]
+BOUNCE_KW = dict(task="bouncing_balls", cell_type="bouncing_ode_cell",
+                 seq_len=30, input_steps=4, pred_steps=6,
+                 autoencoder_loss=2.0, color=True, input_size=32 * 32,
+                 pos_consistency=1.0, vel_anchor=1.0,
+                 learn_frame_offset=True, init_state_fit=1,
+                 refine_enc_pos=4, refine_recons_pos=4)
+
+
+def test_bounce_one1_scores_as_jax(tmp_path, paig_log, monkeypatch):
+    """runs/bounce_one1 (bouncing_balls: no physical parameters, a learned
+    frame offset), restored with orbax, converted and scored by the port's
+    --test_mode with its enhancer flags (the reflection-aware state fit and
+    4 refinement iterations) on the tracked seq-30 test split (200
+    sequences, two batches of 100), against the JAX model's outputs with
+    the same fields (float64 losses), within 1e-4 relative."""
+    tree = _restore_run("bounce_one1")
+    converted = flax_checkpoint_to_port(tree)
+    assert not {"log_k", "log_equil", "log_g", "log_m"} & set(
+        converted["model"])
+    assert set(converted["optimizer"]["state"]) == set(converted["model"])
+    ckpt_dir = tmp_path / "converted"
+    ckpt_dir.mkdir()
+    checkpoint.save_checkpoint(str(ckpt_dir), converted)
+
+    monkeypatch.setenv("PAIG_VIZ_EXAMPLES", "1")
+    _, test_trainer = cli.main(BOUNCE_FLAGS + [
+        "--test_mode", f"--ckpt_dir={ckpt_dir}",
+        f"--save_dir={tmp_path / 'test'}", "--device=cpu"])
+    assert test_trainer.step == int(tree["step"])
+    line = next(r.getMessage() for r in paig_log.records
+                if r.getMessage().startswith("test - epoch=0 "))
+    port = {k: float(v) for k, v in re.findall(r"(\w+)=(\S+)", line)
+            if k.startswith("eval_")}
+
+    model = JaxPhysicsNet(**BOUNCE_KW)
+    apply = jax.jit(model.apply)
+    with np.load(BOUNCE) as d:
+        test_x = d["test_x"]
+    assert test_x.shape[0] == 200
+    per_batch = []
+    for i in range(0, 200, 100):
+        inp = (np.transpose(test_x[i:i + 100], (0, 1, 4, 2, 3))
+               .astype(np.float32) / 255.0)
+        out, aux = apply({"params": tree["params"]}, inp)
+        per_batch.append(_float64_losses(
+            model, inp, np.asarray(out, np.float64),
+            np.asarray(aux["recons_out"], np.float64)))
+    ref = np.mean(per_batch, axis=0)
+    np.testing.assert_allclose(
+        [port["eval_pred_loss"], port["eval_extrap_loss"],
+         port["eval_recons_loss"]], ref, rtol=1e-4)

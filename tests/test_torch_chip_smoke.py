@@ -155,3 +155,33 @@ def test_recipe_flags_are_the_logged_recipes():
         assert flag in smoke, flag
         if flag not in depth:
             assert smoke[flag] == arg, flag
+
+
+def test_task_flags_are_the_logged_recipes():
+    """Every model flag of a task's smoke run is its logged recipe's; only
+    the `extra` depth flags are not in the log."""
+    for task, run in chip_smoke.TASK_RUNS.items():
+        with open(os.path.join(os.path.dirname(chip_smoke.__file__),
+                               run["log"])) as f:
+            logged = {line.strip() for line in f if line.startswith("--")}
+        assert f"--task={task}" in logged, task
+        for flag in run["flags"]:
+            assert flag in logged, (task, flag)
+        for flag in run["extra"]:
+            assert flag not in logged, (task, flag)
+
+
+def test_task_timed_shapes_are_the_tasks_decodes():
+    """The timed shapes hold every decode a task's B=100 run makes: the
+    reconstructions and the rollout of its train length and the rollout of
+    its test length."""
+    from paig_reproduction_tpu_torch import cli
+    from paig_reproduction_tpu_torch.models.physics_net import COORD_UNITS
+
+    for task in chip_smoke.TASK_RUNS:
+        (_, _, _, seq, test_seq, inp, pred, size) = cli.TASK_TABLE[task]
+        img = int(size ** 0.5)
+        o = COORD_UNITS[task] // 4
+        for frames in (inp + pred, seq - inp, test_seq - inp):
+            assert (100 * frames, img, img // 2, o, 3) in \
+                chip_smoke.TIMED_SHAPES, (task, frames)

@@ -1,6 +1,7 @@
 """The port and chip_smoke.py import nothing of JAX and nothing of the JAX
 package: the machine with the card has no JAX. Nor do they import orbax,
-PIL or matplotlib, which it may lack too: the port writes its own images."""
+PIL, matplotlib or scikit-learn, which it may lack too: the port writes its
+own images and carries its own digits."""
 import ast
 import os
 
@@ -8,7 +9,7 @@ import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "PIL", "matplotlib",
-             "paig_reproduction_tpu")
+             "sklearn", "paig_reproduction_tpu")
 
 
 def _port_files():
@@ -40,5 +41,6 @@ def test_no_jax_imports(path):
 def test_scan_sees_the_port():
     names = [os.path.relpath(p, REPO) for p in _port_files()]
     assert "chip_smoke.py" in names
-    assert os.path.join("paig_reproduction_tpu_torch", "models",
-                        "physics_net.py") in names
+    for path in (("models", "physics_net.py"), ("data", "generators.py"),
+                 ("data", "assets.py"), ("data", "generate.py")):
+        assert os.path.join("paig_reproduction_tpu_torch", *path) in names

@@ -23,9 +23,13 @@ from paig_reproduction_tpu_torch.ops.resize import resize_bilinear as t_resize
 
 
 @pytest.mark.parametrize("hw_in,hw_out", [((8, 8), (16, 16)),
-                                          ((16, 16), (32, 32))])
+                                          ((16, 16), (32, 32)),
+                                          ((9, 9), (18, 18)),
+                                          ((18, 18), (36, 36)),
+                                          ((32, 32), (64, 64))])
 def test_resize_bilinear_matches_jax(hw_in, hw_out):
-    """The ShallowUNet's two upsampling sizes."""
+    """The ShallowUNet's upsampling sizes at 32 px and 36 px (3bp_color),
+    and the deep UNet's at 64 px (8 -> 16 -> 32 -> 64)."""
     x = np.random.RandomState(0).randn(2, 5, *hw_in).astype(np.float32)
     ref = np.asarray(j_resize(jnp.asarray(x), hw_out))
     out = t_resize(torch.from_numpy(x), hw_out).numpy()

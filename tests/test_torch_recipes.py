@@ -213,3 +213,66 @@ def test_physics_self_identification_matches_jax(tmp_path, spring500,
             np.asarray(host.params[name]), rtol=1e-4, atol=1e-3,
             err_msg=name)
     assert trainer.aux_warmup_steps == host.aux_warmup_steps == 7
+
+
+BP_DATA = os.path.join(REPO, "data", "datasets", "3bp_color",
+                       "color_3bp_vx2_vy2_sl20_r2_g60_m1_dt05.npz")
+BP_KW = dict(task="3bp_color", cell_type="gravity_ode_cell", seq_len=20,
+             input_steps=4, pred_steps=12, autoencoder_loss=5.0, color=True,
+             input_size=36 * 36, learn_frame_offset=True)
+
+
+@pytest.mark.parametrize("g_true,installs", [(60.0, True), (1.0, False)])
+def test_gravity_self_identification_matches_jax(tmp_path, paig_log,
+                                                 g_true, installs):
+    """The gravity branch of the hook (3bp_color's --fit_physics_every):
+    with the encodings of every forward stubbed by 3-body trajectories of
+    g*m^2 = g_true and fixed rendered offsets in both packages, the fit
+    installs log_g and the frame offset as the JAX hook does (g_true=60),
+    or is refused as there (g_true=1, under the grid's lower bound of
+    2)."""
+    from test_torch_surgery import _gravity_encodings
+    enc = _gravity_encodings(n=16, t=16, g=g_true).astype(np.float32)
+    offsets = np.linspace(-0.5, 0.5, 6).astype(np.float32)
+    dst = tmp_path / "3bp_color"
+    dst.mkdir()
+    with np.load(BP_DATA) as d:
+        np.savez(dst / "sl20.npz", train_x=d["train_x"][:8],
+                 valid_x=d["valid_x"][:4], test_x=d["test_x"][:4])
+    model = PhysicsNet(**BP_KW)
+    jmodel = JaxPhysicsNet(**BP_KW)
+    trainer = Trainer(model, device="cpu", seed=3)
+    trainer.get_data(iterators.get_iterators(str(dst / "sl20.npz"),
+                                             conv=True))
+    host_params = {"log_g": np.float32(0.0), "log_m": np.float32(0.0),
+                   "frame_offset": np.zeros(6, np.float32)}
+    chunks = iter(np.split(enc, 4) * 2)
+
+    def stub(*_):
+        return None, {"enc_pos": torch.from_numpy(next(chunks))}
+
+    model.forward = stub
+    host = types.SimpleNamespace(
+        model=jmodel, params=host_params,
+        train_iterator=trainer.train_iterator, aux_on_recons=0.0,
+        _aux_triggered=False, aux_warmup_steps=0, step=7,
+        _put_batch_replicated=np.asarray,
+        _forward=lambda p, b: (None, {"enc_pos": next(chunks)}),
+        _rendered_offsets=lambda: offsets)
+    trainer._rendered_offsets = lambda: offsets
+    trainer._identify_physics(4)
+    port_log = paig_log.text
+    jax_recipes.RecipeMixin._identify_physics(host, 4)
+    jax_log = paig_log.text[len(port_log):]
+    assert ("fit_physics: A=g*m^2=" in port_log) == installs
+    assert port_log.split("fit_physics: ")[1].split("\n")[0] == \
+        jax_log.split("fit_physics: ")[1].split("\n")[0]
+    np.testing.assert_allclose(model.log_g.item(),
+                               float(np.asarray(host.params["log_g"])),
+                               rtol=1e-6)
+    np.testing.assert_allclose(model.frame_offset.detach().numpy(),
+                               np.asarray(host.params["frame_offset"]))
+    assert model.log_m.item() == 0.0
+    if installs:
+        # 5 substeps and the offsets bias the fit a little off the truth.
+        assert 0.8 < np.exp(model.log_g.item()) / 60.0 < 1.2

@@ -188,3 +188,48 @@ def test_identify_matches_jax():
         assert identify.on_bounds(value, identify.SPRING_K_BOUNDS) == \
             jax_identify.on_bounds(value, jax_identify.SPRING_K_BOUNDS)
     assert identify.SPRING_E_BOUNDS == jax_identify.SPRING_E_BOUNDS
+
+
+def _gravity_encodings(n=24, t=16, seed=6, g=60.0, noise=0.05):
+    """[N, t, 6] noisy positions of 3-body trajectories (3bp_color's g=60,
+    m=1, dt=0.5, from its generator's kind of start: a triangle of radius
+    6.75-11.25 px about the centre of the 36 px frame, turning at 2 px per
+    unit time) with slot swaps."""
+    from paig_reproduction_tpu_torch.ops.cells import numpy_generator_gravity
+    rs = np.random.RandomState(seed)
+    enc = np.empty((n, t, 6))
+    for i in range(n):
+        a = rs.uniform(0, 2 * np.pi) + np.array([0, 2, 4]) * np.pi / 3
+        r = rs.uniform(6.75, 11.25)
+        p = np.stack([18 + r * np.cos(a), 18 + r * np.sin(a)], 1)
+        b = a + (rs.randint(0, 2) * 2 - 1) * np.pi / 2
+        v = np.stack([2 * np.cos(b), 2 * np.sin(b)], 1) + rs.rand(2) - 0.5
+        for f in range(t):
+            enc[i, f] = p.ravel()
+            p, v = numpy_generator_gravity(p, v, g, 1.0, 0.5, 10)
+    enc += rs.randn(*enc.shape) * noise
+    enc[::4, 5] = enc[::4, 5][:, [2, 3, 4, 5, 0, 1]]
+    return enc
+
+
+def test_gravity_identify_matches_jax():
+    """The gravity fits (pointwise and trajectory), the trajectory error,
+    the 3-object slot alignment and the grid bounds, exactly as the JAX
+    package's on the same arrays; the trajectory fit finds g*m^2 = 60."""
+    enc = _gravity_encodings()
+    aligned = identify.align_slots(enc, 3)
+    np.testing.assert_array_equal(aligned, jax_identify.align_slots(enc, 3))
+    assert identify.GRAVITY_A_BOUNDS == jax_identify.GRAVITY_A_BOUNDS
+    assert identify.fit_gravity(aligned, 0.5) == \
+        jax_identify.fit_gravity(aligned, 0.5)
+    for kw in (dict(), dict(substeps=10)):
+        assert identify.fit_gravity_trajectory(aligned, 0.5, **kw) == \
+            jax_identify.fit_gravity_trajectory(aligned, 0.5, **kw)
+        assert identify.gravity_trajectory_error(aligned, 0.5, 30.0,
+                                                 **kw) == \
+            jax_identify.gravity_trajectory_error(aligned, 0.5, 30.0, **kw)
+    A, _ = identify.fit_gravity_trajectory(aligned, 0.5, substeps=10)
+    assert abs(A - 60.0) < 6.0
+    for value in (2.0, 2.02, 399.0, 60.0):
+        assert identify.on_bounds(value, identify.GRAVITY_A_BOUNDS) == \
+            jax_identify.on_bounds(value, jax_identify.GRAVITY_A_BOUNDS)
