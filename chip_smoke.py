@@ -62,10 +62,31 @@ Phases, each printing its elapsed seconds:
                 there, and the kernel's launch count must equal the count
                 of every decode (the refinement's included). It prints
                 each task's median train step;
-10. kernels   - one JSON line with every kernel's launches, error, times,
+10. lstm      - the main path's command with the LSTM baseline
+                (``--cell_type=lstm``, 100 units, 1 layer:
+                benchmarks/lstm_proof_log.txt's defaults) for 2 epochs
+                through the CLI entry, with the checkpoint, the seq-30 phase
+                and the artifacts: losses finite and falling, the launch
+                count exact (every rollout decoded in one call), then
+                ``--test_mode`` alone; it prints the median train step and
+                the seq-30 phase's wall time;
+11. bf16      - the same with ``--compute_dtype=bfloat16``: the median step
+                beside the float32 one of the ``step`` phase, the UNet's
+                output dtype (a forward hook) and float32 weights and
+                optimizer state, and the card's bf16 positions held to the
+                same model's on the CPU on one batch (BF16_POS_ATOL);
+12. runtime   - ``--watchdog_secs --watchdog_floor_secs --profile_dir
+                --debug_nans`` on a 1-epoch run (a trace file and a stopped
+                watchdog after it); a subprocess whose train step sleeps
+                past a 3 s watchdog must exit with 75; ``--use_ckpt
+                --resume_remaining_epochs --epochs=3`` from the ``train``
+                phase's 2-epoch checkpoint must train exactly 1 epoch
+                (counted in its log.txt);
+13. kernels   - one JSON line with every kernel's launches, error, times,
                 share of its bound and store-only floor, at the main
                 path's N=1000 and at N=2600, the recipe's launches, each
-                task's launches and the kernel at the tasks' shapes.
+                task's launches, the LSTM, bf16 and runtime runs' launches
+                and the kernel at the tasks' shapes.
 
 With ``--parent OLD/csrc/st_decoder.cu`` (an earlier source of the kernel
 whose C entry, ``st_decode_forward``, takes no ``slots`` argument) the
@@ -82,7 +103,9 @@ from __future__ import annotations
 
 import argparse
 import atexit
+import copy
 import ctypes
+import glob
 import json
 import math
 import os
@@ -165,6 +188,20 @@ TASK_RUNS = {
                "--refine_recons_pos=4", "--enhancers_eval_only"],
         extra=[], epochs=4, generate=((200, 100, 100), 20)),
 }
+# The LSTM baseline of benchmarks/lstm_proof_log.txt (its recurrent flags
+# are the CLI defaults, written out) and the bf16 encoder, each added to the
+# main path's flags.
+LSTM_ARGS = ["--cell_type=lstm", "--recurrent_units=100", "--lstm_layers=1"]
+BF16_ARGS = ["--compute_dtype=bfloat16"]
+# bf16 positions on the card against the same model's on the CPU: both
+# round their bf16 products once after f32 sums, in orders that may differ,
+# so a value can land one bf16 step away and move a position by thousandths
+# of a pixel (the CPU against the JAX package: at most 3.9e-3 px,
+# tests/test_torch_bf16.py; an NVIDIA H100 80GB HBM3 at 700 W against the
+# CPU: 1.9e-6 px). Held to 1e-2 px.
+BF16_POS_ATOL = 1e-2
+# The runtime phase's watchdog timeout for the subprocess that hangs.
+HANG_WATCHDOG_SECS = 3
 # The tangent's tolerance, relative to its largest value: through the
 # kernel's wrapper the tangent is the plain decode's JVP of the same inputs,
 # so the two differ only where the card's sums run in another order.
@@ -567,17 +604,19 @@ def check_artifacts(save_dir, required=ARTIFACTS):
         for n in names))
 
 
-def train(batch_size=100, epochs=2):
-    """Drive the port's CLI entry on spring_color: train, save, the seq-30
-    test phase and the artifacts. Returns (launch count, the training
-    Trainer, its save_dir, the seq-30 losses)."""
+def train(batch_size=100, epochs=2, extra=()):
+    """Drive the port's CLI entry on spring_color with the main path's
+    flags and `extra`: train, save, the seq-30 test phase and the
+    artifacts. Returns (launch count, the training Trainer, its save_dir,
+    the seq-30 losses)."""
     import torch
     from paig_reproduction_tpu_torch import cli
     from paig_reproduction_tpu_torch.ops.cuda import st_decoder as sd
 
     save_dir = os.path.join(tempfile.mkdtemp(prefix="paig_smoke_"), "run")
     argv = TRAIN_ARGS + [f"--batch_size={batch_size}", f"--epochs={epochs}",
-                         f"--data_dir={DATA_DIR}", f"--save_dir={save_dir}"]
+                         f"--data_dir={DATA_DIR}", f"--save_dir={save_dir}",
+                         *extra]
     with cli_run():
         sd.LAUNCHES = 0
         trainer, test_trainer = cli.main(argv)
@@ -615,11 +654,11 @@ def train(batch_size=100, epochs=2):
     return launches, trainer, save_dir, test30
 
 
-def run_test_mode(save_dir, test30, batch_size=100):
-    """``--test_mode --ckpt_dir=save_dir`` alone: its wall time and launch
-    count; its losses agree with the training run's seq-30 phase (the same
-    checkpoint and split, the batches grouped differently) within 1e-5
-    relative."""
+def run_test_mode(save_dir, test30, batch_size=100, extra=()):
+    """``--test_mode --ckpt_dir=save_dir`` alone (with the run's `extra`
+    model flags): its wall time and launch count; its losses agree with the
+    training run's seq-30 phase (the same checkpoint and split, the batches
+    grouped differently) within 1e-5 relative."""
     import torch
     from paig_reproduction_tpu_torch import cli
     from paig_reproduction_tpu_torch.ops.cuda import st_decoder as sd
@@ -627,7 +666,7 @@ def run_test_mode(save_dir, test30, batch_size=100):
     out_dir = os.path.join(os.path.dirname(save_dir), "test_mode")
     argv = TRAIN_ARGS + [f"--batch_size={batch_size}", "--test_mode",
                          f"--ckpt_dir={save_dir}", f"--data_dir={DATA_DIR}",
-                         f"--save_dir={out_dir}"]
+                         f"--save_dir={out_dir}", *extra]
     with cli_run():
         sd.LAUNCHES = 0
         t0 = time.perf_counter()
@@ -876,6 +915,165 @@ def recipe(batch_size=100):
                 eval_plain_ms=eval_off)
 
 
+def variant(extra, batch_size=100):
+    """The main path's command with `extra` flags through the CLI entry as
+    the ``train`` phase drives it (2 epochs, the seq-30 phase, every decode
+    counted), then ``--test_mode`` alone and the median train step. Returns
+    the phase's numbers and the training Trainer."""
+    launches, trainer, save_dir, test30 = train(batch_size, extra=extra)
+    seconds = run_test_mode(save_dir, test30, batch_size, extra=extra)
+    step = step_ms(trainer, batch_size)
+    return dict(launches=launches, step_ms=step, seq30_s=seconds), trainer
+
+
+def check_bf16(trainer, n=10):
+    """The bf16 run's encoder ran in bf16 (the UNet's output dtype, seen by
+    a forward hook) with float32 weights and optimizer state, and its
+    positions on the card agree with the same model's on the CPU on the
+    first `n` valid sequences within BF16_POS_ATOL. Returns the error."""
+    import numpy as np
+    import torch
+    from paig_reproduction_tpu_torch.data.iterators import gather_batch
+
+    model = trainer.model
+    seen = []
+    hook = model.encoder.unet.register_forward_hook(
+        lambda mod, args, out: seen.append(out.dtype))
+    batch = gather_batch(trainer._split_u8("valid"), np.arange(n))
+    try:
+        with torch.no_grad():
+            _, aux = model(batch)
+    finally:
+        hook.remove()
+    weights = {p.dtype for p in model.parameters()}
+    state = {t.dtype for st in trainer.optimizer.state.values()
+             for t in st.values()}
+    print(f"bf16: UNet output {seen}, weights {weights}, optimizer state "
+          f"{state}")
+    if seen != [torch.bfloat16]:
+        raise AssertionError("the encoder's UNet did not run in bf16")
+    if weights != {torch.float32} or state != {torch.float32}:
+        raise AssertionError("the master weights or the optimizer state "
+                             "are not float32")
+    cpu = copy.deepcopy(model).cpu()
+    with torch.no_grad():
+        _, aux_cpu = cpu(batch.cpu())
+    err = (aux["enc_pos"].cpu() - aux_cpu["enc_pos"]).abs().max().item()
+    print(f"bf16 enc_pos on the card against the CPU ({n} sequences): "
+          f"max_abs_err={err:.3e} px (tolerance {BF16_POS_ATOL})")
+    if not err <= BF16_POS_ATOL:
+        raise AssertionError("the card's bf16 positions disagree with the "
+                             "CPU's")
+    return err
+
+
+def hang_under_watchdog(argv):
+    """The CLI entry with `argv` for 1 epoch, no pre-train eval and a
+    HANG_WATCHDOG_SECS watchdog, in a subprocess whose train step sleeps 120
+    s. Returns (its exit code, the watchdog's log lines, its seconds)."""
+    argv = list(argv) + ["--epochs=1", "--debug",
+                         f"--watchdog_secs={HANG_WATCHDOG_SECS}"]
+    code = ("import sys, time\n"
+            f"sys.path.insert(0, {REPO!r})\n"
+            "from paig_reproduction_tpu_torch import cli\n"
+            "from paig_reproduction_tpu_torch.train.trainer import Trainer\n"
+            "Trainer.train_step = lambda self, idx: time.sleep(120)\n"
+            f"cli.main({argv!r})\n")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    fired = [line for line in proc.stderr.splitlines()
+             if "device watchdog: no loop progress" in line]
+    if proc.returncode != 75:
+        print(proc.stderr[-3000:])
+    return proc.returncode, fired, time.perf_counter() - t0
+
+
+def runtime(train_dir, batch_size=100):
+    """The runtime flags through the CLI entry: the watchdog, the profiler
+    and the NaN checks on a 1-epoch run; a watchdog firing in a subprocess
+    whose train step hangs; and --resume_remaining_epochs from `train_dir`'s
+    2-epoch checkpoint. Returns the phase's numbers."""
+    import torch
+    from paig_reproduction_tpu_torch import cli
+    from paig_reproduction_tpu_torch.ops.cuda import st_decoder as sd
+
+    base = tempfile.mkdtemp(prefix="paig_runtime_")
+    prof_dir = os.path.join(base, "profile")
+    argv = TRAIN_ARGS + [f"--batch_size={batch_size}", "--epochs=1",
+                         "--datapoints=300", f"--data_dir={DATA_DIR}",
+                         f"--save_dir={os.path.join(base, 'flags')}",
+                         "--watchdog_secs=600", "--watchdog_floor_secs=60",
+                         f"--profile_dir={prof_dir}", "--debug_nans"]
+    with cli_run():
+        sd.LAUNCHES = 0
+        t0 = time.perf_counter()
+        trainer, test_trainer = cli.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = sd.LAUNCHES
+    traces = glob.glob(os.path.join(prof_dir, "*.pt.trace.json"))
+    if len(traces) != 1 or not os.path.getsize(traces[0]):
+        raise AssertionError(f"--profile_dir wrote {traces}")
+    with open(traces[0]) as f:
+        events = json.load(f)["traceEvents"]
+    device_events = sum(1 for e in events if e.get("cat") == "kernel")
+    needed = expected_launches(
+        trainer.step, trainer.valid_iterator.num_examples,
+        trainer.test_iterator.num_examples,
+        test_trainer.test_iterator.num_examples, batch_size, 1)
+    print(f"runtime flags: {seconds:.3f} s wall, {trainer.step} steps, "
+          f"st_decode launches {launches} (expected {needed}); trace "
+          f"{os.path.getsize(traces[0])} B, {len(events)} events, "
+          f"{device_events} of them device kernels")
+    if launches != needed:
+        raise AssertionError("the run with the runtime flags did not decode "
+                             "through the kernel on every decode")
+    for t in (trainer, test_trainer):
+        if t._watchdog is None or t._watchdog._armed:
+            raise AssertionError("a watchdog was not armed, or not stopped "
+                                 "before the last artifacts")
+
+    code, fired, hang_s = hang_under_watchdog(
+        TRAIN_ARGS + [f"--batch_size={batch_size}", f"--data_dir={DATA_DIR}",
+                      f"--save_dir={os.path.join(base, 'hang')}"])
+    print(f"hung train step under a {HANG_WATCHDOG_SECS} s watchdog: exit "
+          f"{code} after {hang_s:.1f} s; {fired}")
+    if code != 75 or not fired:
+        raise AssertionError("the watchdog did not end the hung run with 75")
+
+    resumed_dir = os.path.join(base, "resumed")
+    argv = TRAIN_ARGS + [f"--batch_size={batch_size}", "--epochs=3",
+                         "--use_ckpt", "--resume_remaining_epochs",
+                         f"--ckpt_dir={train_dir}", f"--data_dir={DATA_DIR}",
+                         f"--save_dir={resumed_dir}"]
+    with cli_run():
+        sd.LAUNCHES = 0
+        resumed, resumed_test = cli.main(argv)
+        torch.cuda.synchronize()
+        resume_launches = sd.LAUNCHES
+    with open(os.path.join(resumed_dir, "log.txt")) as f:
+        log = f.read()
+    epochs = [int(e) for e in re.findall(r"valid - epoch=(\d+) ", log)]
+    steps = len(re.findall(r"train - iter=", log))
+    spe = resumed.train_iterator.num_examples // batch_size
+    needed = expected_launches(
+        steps, resumed.valid_iterator.num_examples,
+        resumed.test_iterator.num_examples,
+        resumed_test.test_iterator.num_examples, batch_size, 1)
+    print(f"--resume_remaining_epochs --epochs=3 from 2 epochs done: valid "
+          f"evals at loop epochs {epochs}, {steps} train steps ({spe} an "
+          f"epoch), step {resumed.step}; st_decode launches "
+          f"{resume_launches} (expected {needed})")
+    if epochs != [0, 1] or steps != spe or resumed.step != 3 * spe:
+        raise AssertionError("the resume did not train exactly 1 epoch")
+    if resume_launches != needed:
+        raise AssertionError("the resumed run did not decode through the "
+                             "kernel on every decode")
+    return dict(launches=launches, resume_launches=resume_launches,
+                seconds=seconds, hang_seconds=hang_s)
+
+
 def generated_dir(task):
     """The directory of a task's generated files, named by its sizes."""
     (n_train, n_valid, n_test), n_test30 = TASK_RUNS[task]["generate"]
@@ -1087,6 +1285,23 @@ def main(argv=None):
             f"{t} step {r['step_ms']:.2f} ms, {r['launches']} launches"
             for t, r in tasks.items()))
 
+    with phase("lstm"):
+        lstm, _ = variant(LSTM_ARGS)
+        print(f"lstm on {smi}: median train step {lstm['step_ms']:.2f} ms "
+              f"at B=100, seq-30 phase alone {lstm['seq30_s']:.3f} s, "
+              f"{lstm['launches']} launches")
+
+    with phase("bf16"):
+        bf16, bf16_trainer = variant(BF16_ARGS)
+        bf16["enc_pos_err"] = check_bf16(bf16_trainer)
+        del bf16_trainer
+        print(f"bf16 on {smi}: median train step {bf16['step_ms']:.2f} ms "
+              f"against float32's {ms:.2f} ms (step phase), seq-30 phase "
+              f"alone {bf16['seq30_s']:.3f} s, {bf16['launches']} launches")
+
+    with phase("runtime"):
+        rt = runtime(save_dir)
+
     with phase("kernels"):
         main_path = timings[TIMED_SHAPES[0]]
         seq30 = timings[2600, 32, 16, 2, 3]
@@ -1112,6 +1327,9 @@ def main(argv=None):
             "recipe_launches": rec["launches"],
             "recipe_refine_launches": rec["refine_launches"],
             "task_launches": {t: r["launches"] for t, r in tasks.items()},
+            "lstm_launches": lstm["launches"],
+            "bf16_launches": bf16["launches"],
+            "runtime_launches": rt["launches"],
             "task_shapes": [dict(
                 zip(("n", "img", "tmpl", "objects", "ch"), shape),
                 **{k: timings[shape][k] for k in (

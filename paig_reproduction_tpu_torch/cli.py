@@ -2,9 +2,9 @@
 
 ``build_parser`` has the same flags, defaults and choices as
 ``paig_reproduction_tpu/cli.py``'s, plus ``--device``. A flag whose feature
-is not ported yet raises ``NotImplementedError`` when it is given a value
-other than its default; the model raises for its own extension fields.
-Dataset files come from ``TASK_TABLE`` under ``--data_dir``.
+is not ported yet (``UNSUPPORTED_FLAGS``) raises ``NotImplementedError``
+when it is given a value other than its default. Dataset files come from
+``TASK_TABLE`` under ``--data_dir``.
 
 A run trains (unless ``--test_mode``), saving ``model.ckpt`` in
 ``--save_dir``, with the single-command recipes as the JAX CLI wires them:
@@ -15,6 +15,13 @@ the model at the task's test sequence length
 and evaluates the test split of the longer-sequence file from save_dir's
 checkpoint, or from ``--ckpt_dir``'s under ``--test_mode``, as the JAX
 package's CLI does.
+
+The runtime flags: ``--watchdog_secs``/``--watchdog_floor_secs`` arm both
+phases' trainers' watchdog (exit 75 on a hung device call);
+``--resume_remaining_epochs`` with ``--use_ckpt`` trains only what the
+checkpoint chain has not; ``--profile_dir`` writes a ``torch.profiler``
+trace of the training phase there; ``--debug_nans`` raises
+``FloatingPointError`` at the first NaN (``train/trainer.py``).
 """
 from __future__ import annotations
 
@@ -303,7 +310,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--compute_dtype", type=str, default="float32",
                         choices=("float32", "bfloat16"),
                         help="[extension] encoder conv-stack computation "
-                             "dtype (only float32 is ported)")
+                             "dtype")
     parser.add_argument("--device", type=str, default="cuda",
                         help="[extension] torch device to train on "
                              "(cuda, or cpu for small runs)")
@@ -337,13 +344,16 @@ TASK_TABLE = {
 }
 
 
-# Flags of trainer features not ported yet (profiling, NaN debugging,
-# multi-device training, the native loader, the watchdog and resuming the
-# remaining epochs); each must keep its default.
-UNSUPPORTED_FLAGS = (
-    "profile_dir", "debug_nans", "n_model_shards", "native_loader",
-    "watchdog_secs", "watchdog_floor_secs", "resume_remaining_epochs",
-)
+# Flags of trainer features not ported yet (multi-device training and the
+# native loader); each must keep its default.
+UNSUPPORTED_FLAGS = ("n_model_shards", "native_loader")
+
+
+def epochs_to_train(epochs, epochs_done, resume_remaining):
+    """The epochs a run trains: ``--epochs``, or with
+    ``--resume_remaining_epochs`` what the checkpoint chain's
+    ``epochs_done`` leaves of them, at least one (as the JAX CLI counts)."""
+    return max(1, epochs - epochs_done) if resume_remaining else epochs
 
 
 def main(argv=None):
@@ -381,9 +391,15 @@ def main(argv=None):
         os.path.dirname(os.path.dirname(os.path.realpath(__file__))),
         "data", "datasets")
 
+    def runtime_flags(t):
+        t.watchdog_secs = args.watchdog_secs
+        t.watchdog_floor_secs = args.watchdog_floor_secs
+        t.debug_nans = args.debug_nans
+
     def build(seq):
         return get_model(args.model)(
-            task=args.task,
+            task=args.task, recurrent_units=args.recurrent_units,
+            lstm_layers=args.lstm_layers,
             cell_type=args.cell_type if args.cell_type else cell_type,
             seq_len=seq, input_steps=input_steps, pred_steps=pred_steps,
             autoencoder_loss=args.autoencoder_loss, alt_vel=args.alt_vel,
@@ -413,7 +429,9 @@ def main(argv=None):
                                        conv=True,
                                        datapoints=args.datapoints)
         trainer = Trainer(build(seq_len), device=args.device, seed=args.seed,
-                          enhancers_eval_only=args.enhancers_eval_only)
+                          enhancers_eval_only=args.enhancers_eval_only,
+                          profile_dir=args.profile_dir)
+        runtime_flags(trainer)
         trainer.get_data(data_iterators)
         steps_per_epoch = max(
             1, data_iterators[0].num_examples // args.batch_size)
@@ -435,7 +453,12 @@ def main(argv=None):
             trainer.set_aux_trigger(args.aux_on_recons)
         trainer.initialize_graph(args.save_dir, args.use_ckpt,
                                  args.ckpt_dir)
-        remaining = args.epochs
+        resume = args.use_ckpt and args.resume_remaining_epochs
+        remaining = epochs_to_train(args.epochs, trainer._epoch_base, resume)
+        if resume and trainer._epoch_base:
+            logger.info("resume_remaining_epochs: checkpoint chain has %d "
+                        "epochs done, training %d more",
+                        trainer._epoch_base, remaining)
         if args.discovery_restarts > 0 and not args.use_ckpt:
             # Counted against --epochs, leaving at least one normal epoch
             # (and its final save).
@@ -458,6 +481,7 @@ def main(argv=None):
     data_iterators = get_iterators(os.path.join(data_root, test_data_file),
                                    conv=True, datapoints=args.datapoints)
     test_trainer = Trainer(build(test_seq_len), device=args.device)
+    runtime_flags(test_trainer)
     test_trainer.get_data(data_iterators)
     test_trainer.build_optimizer(args.base_lr, args.optimizer,
                                  args.anneal_lr)

@@ -9,7 +9,14 @@ the params), so this module needs numpy only. Layout changes:
 * top-level leaves (``log_k``, ``log_equil``, ``log_g``, ``log_m``,
   ``frame_offset``) keep their names; each task's tree holds its own cell's
   (spring: ``log_k``, ``log_equil``; gravity: ``log_g``, ``log_m``;
-  bouncing: none), as the port's model does.
+  bouncing: none), as the port's model does;
+* a flax ``OptimizedLSTMCell`` (``lstm_<i>``) keeps one kernel per gate:
+  input kernels ``ii, if, ig, io`` ``[in, H]`` without bias and hidden
+  kernels ``hi, hf, hg, ho`` ``[H, H]`` with one. torch's ``LSTMCell``
+  stacks its gates in the same order, so ``weight_ih`` is
+  ``cat([ii, if, ig, io], 1).T``, ``weight_hh`` ``cat([hi, hf, hg, ho],
+  1).T`` and ``bias_hh`` the four biases; the port's ``bias_ih`` is a zero
+  buffer, not in the state_dict.
 
 Module names map as ``ShallowUNet_0`` (or the deep ``UNet_0`` of 40 px and
 larger inputs) -> ``unet``, ``TorchConv_<i>`` ->
@@ -30,6 +37,7 @@ import numpy as np
 import torch
 
 _RENAMES = {"ShallowUNet_0": "unet", "UNet_0": "unet"}
+_LSTM_GATES = ("i", "f", "g", "o")
 _INDEXED = (("TorchConv_", "convs."), ("TorchDense_", "dense."))
 
 
@@ -42,9 +50,25 @@ def _module_name(segment: str) -> str:
     return segment
 
 
+def _fuse_lstm(cell: Mapping) -> dict:
+    """A flax OptimizedLSTMCell's per-gate leaves as torch LSTMCell's fused
+    ones (none where a multi_transform branch masks the cell out)."""
+    if cell["ii"]["kernel"] is None:
+        return {}
+
+    def gates(side, leaf):
+        return np.concatenate([np.asarray(cell[side + g][leaf])
+                               for g in _LSTM_GATES], axis=-1)
+    return {"weight_ih": gates("i", "kernel").T,
+            "weight_hh": gates("h", "kernel").T,
+            "bias_hh": gates("h", "bias")}
+
+
 def _flatten(tree: Mapping, prefix=()):
     for key, value in tree.items():
-        if isinstance(value, Mapping):
+        if isinstance(value, Mapping) and "ii" in value:
+            yield from _flatten(_fuse_lstm(value), prefix + (key,))
+        elif isinstance(value, Mapping):
             yield from _flatten(value, prefix + (key,))
         else:
             yield prefix + (key,), value
@@ -98,19 +122,24 @@ def flax_checkpoint_to_port(tree: Mapping) -> dict:
     starts it afresh).
 
     optax RMSprop's ``nu`` becomes each parameter's ``nu``, the port's
-    RMSprop state. Under ``multi_transform`` (``--physics_lr_mult``,
-    ``--bg_lr_mult``) each branch holds ``nu`` for its own parameters; the
-    branches are merged, each parameter from the branch that trains it.
-    The state of the other optimizers (Adam's ``mu``/``nu`` with its
-    bias-correction count, momentum's trace) is left out, so a restore
-    keeps their initial state and logs it."""
+    RMSprop state; optax Adam's ``mu``, ``nu`` and ``count`` become
+    ``torch.optim.Adam``'s ``exp_avg``, ``exp_avg_sq`` and ``step`` (the
+    same update rule). Under ``multi_transform`` (``--physics_lr_mult``,
+    ``--bg_lr_mult``) each branch holds the state of its own parameters;
+    the branches are merged, each parameter from the branch that trains it.
+    Momentum's trace is left out, so a restore keeps its initial state and
+    logs it."""
     optimizer = {}
-    for rms in _find_mappings(tree.get("opt_state"), "nu"):
-        if "mu" in rms:
-            optimizer = {}
-            break
-        optimizer.update({name: {"nu": t} for name, t in
-                          flax_to_state_dict(rms["nu"]).items()})
+    for st in _find_mappings(tree.get("opt_state"), "nu"):
+        nus = flax_to_state_dict(st["nu"])
+        if "mu" not in st:
+            optimizer.update({name: {"nu": t} for name, t in nus.items()})
+            continue
+        mus = flax_to_state_dict(st["mu"])
+        count = float(np.asarray(st["count"]))
+        optimizer.update({name: {"step": torch.tensor(count),
+                                 "exp_avg": mus[name], "exp_avg_sq": t}
+                          for name, t in nus.items()})
     out = {"model": flax_to_state_dict(tree["params"]),
            "optimizer": {"state": optimizer}}
     for key in ("step", "epoch", "total_epochs_done"):

@@ -1,11 +1,14 @@
 """Offline dataset generators of the tasks' video files, in numpy.
 
-Counterpart of ``paig_reproduction_tpu/data/generators.py`` for the four
-generators the presets of ``data/generate.py`` use:
+Counterpart of ``paig_reproduction_tpu/data/generators.py``: the four
+generators the presets of ``data/generate.py`` use,
 ``generate_spring_balls_dataset`` (spring_color, spring_color_half),
 ``generate_spring_mnist_dataset`` (mnist_spring_color),
 ``generate_3_body_problem_dataset`` (3bp_color) and
-``generate_bouncing_balls_video_dataset`` (bouncing_balls). Each seeds and
+``generate_bouncing_balls_video_dataset`` (bouncing_balls), and the three no
+task reads, ``generate_bouncing_ball_dataset`` (coordinates only),
+``generate_falling_ball_dataset`` and
+``generate_falling_bouncing_ball_dataset``. Each seeds and
 draws from the global ``np.random`` stream in the same order as the JAX
 package's, with the same float64 arithmetic, so the same seed gives the same
 bytes. Balls are rendered at 10x supersampling with a numpy disk rasterizer
@@ -74,9 +77,9 @@ def _bilinear_resize(img: np.ndarray, out_hw) -> np.ndarray:
     return top * (1 - wy) + bot * wy
 
 
-def _save_dataset(dest, sequences, train_n, valid_n):
+def _save_dataset(dest, sequences, train_n, valid_n, sample_gallery=True):
     """The npz with keys train_x / valid_x / test_x, and the sample
-    gallery."""
+    gallery (of frames; coordinate files have none)."""
     os.makedirs(os.path.dirname(os.path.abspath(dest)), exist_ok=True)
     np.savez_compressed(
         dest,
@@ -84,7 +87,8 @@ def _save_dataset(dest, sequences, train_n, valid_n):
         valid_x=sequences[train_n:train_n + valid_n],
         test_x=sequences[train_n + valid_n:])
     print("Saved to file %s" % dest)
-    _save_samples_jpg(dest, sequences)
+    if sample_gallery:
+        _save_samples_jpg(dest, sequences)
 
 
 def _save_samples_jpg(dest, sequences, n=10):
@@ -196,6 +200,113 @@ def _spring_start(img_size, radius, equil, vx0_max, vy0_max):
 
 
 # ----- generators ----------------------------------------------------------
+
+
+def generate_bouncing_ball_dataset(dest, train_set_size, valid_set_size,
+                                   test_set_size, seq_len, box_size):
+    """Coordinate-only single-ball bounce trajectories, float64
+    ``[N, seq_len, 2]``."""
+    np.random.seed(0)
+
+    def verify_collision(x, v):
+        if x[0] + v[0] > box_size or x[0] + v[0] < 0.0:
+            v[0] = -v[0]
+        if x[1] + v[1] > box_size or x[1] + v[1] < 0.0:
+            v[1] = -v[1]
+        return v
+
+    def generate_trajectory(steps):
+        traj = []
+        x = np.random.rand(2) * box_size
+        speed = np.random.rand() + 1
+        angle = np.random.rand() * 2 * np.pi
+        v = np.array([speed * np.cos(angle), speed * np.sin(angle)])
+        for _ in range(steps):
+            traj.append(x)
+            v = verify_collision(x, v)
+            x = x + v
+        return traj
+
+    total = train_set_size + valid_set_size + test_set_size
+    trajectories = np.array([generate_trajectory(seq_len)
+                             for _ in range(total)])
+    _save_dataset(dest, trajectories, train_set_size, valid_set_size,
+                  sample_gallery=False)
+
+
+def generate_falling_ball_dataset(dest, train_set_size, valid_set_size,
+                                  test_set_size, seq_len, img_size=None,
+                                  radius=3, dt=0.15, g=9.8, ode_steps=10):
+    """A single ball in free fall, drawn without supersampling."""
+    np.random.seed(0)
+    if img_size is None:
+        img_size = [32, 32]
+
+    def generate_sequence():
+        seq = []
+        pos = np.random.rand(2)
+        pos[0] = radius + (img_size[0] - 2 * radius) * pos[0]
+        pos[1] = radius + (img_size[1] - 2 * radius) / 2 * pos[1]
+        vel = np.array([0.0, 0.0])
+        for _ in range(seq_len):
+            if not pos[1] + radius < img_size[1]:
+                raise ValueError("the ball fell out of the frame: shorten "
+                                 "seq_len or dt")
+            frame = np.zeros(list(img_size) + [1], dtype=np.uint8)
+            rr, cc = _disk(img_size, int(pos[1]), int(pos[0]), radius)
+            frame[rr, cc, 0] = 255
+            seq.append(frame)
+            for _ in range(ode_steps):
+                vel[1] = vel[1] + dt / ode_steps * g
+                pos[1] = pos[1] + dt / ode_steps * vel[1]
+        return seq
+
+    total = train_set_size + valid_set_size + test_set_size
+    _save_dataset(dest, _generate(generate_sequence, total), train_set_size,
+                  valid_set_size)
+
+
+def generate_falling_bouncing_ball_dataset(
+        dest, train_set_size, valid_set_size, test_set_size, seq_len,
+        img_size=None, radius=3, dt=0.30, g=9.8, vx0_max=0.0, vy0_max=0.0,
+        cifar_background=False, ode_steps=10):
+    """A single grey ball under gravity that bounces off the walls."""
+    np.random.seed(0)
+    rng = np.random
+    if img_size is None:
+        img_size = [32, 32]
+    scale = 10
+    scaled = [img_size[0] * scale, img_size[1] * scale]
+
+    def generate_sequence():
+        seq = []
+        pos = np.random.rand(2)
+        pos[0] = radius + (img_size[0] - 2 * radius) * pos[0]
+        if g == 0.0:
+            pos[1] = radius + (img_size[1] - 2 * radius) * pos[1]
+        else:
+            pos[1] = radius + (img_size[1] - 2 * radius) / 2 * pos[1]
+        angle = np.random.rand() * 2 * np.pi
+        vel = np.array([np.cos(angle) * vx0_max, np.sin(angle) * vy0_max])
+        bg = _cifar_background(scaled, rng) if cifar_background else None
+        for _ in range(seq_len):
+            frame = bg.copy() if bg is not None else \
+                np.zeros(scaled, dtype=np.float32)
+            rr, cc = _disk(scaled, int(pos[1] * scale), int(pos[0] * scale),
+                           radius * scale)
+            frame[rr, cc] = 1.0
+            frame = _box_downscale(frame, scale)
+            seq.append((frame[:, :, None] * 255).astype(np.uint8))
+            for _ in range(ode_steps):
+                vel[1] = vel[1] + dt / ode_steps * g
+                pos[1] = pos[1] + dt / ode_steps * vel[1]
+                pos[0] = pos[0] + dt / ode_steps * vel[0]
+                pos, vel = compute_wall_collision(pos, vel, radius, img_size)
+        return seq
+
+    total = train_set_size + valid_set_size + test_set_size
+    _save_dataset(dest, _generate(generate_sequence, total), train_set_size,
+                  valid_set_size)
 
 
 def generate_spring_balls_dataset(

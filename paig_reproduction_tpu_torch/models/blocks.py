@@ -8,6 +8,17 @@ and ``VariableFromNetwork``.
 Every layer draws its kernel and bias from U(+-1/sqrt(fan_in)), torch's own
 Linear/Conv2d default, from an explicit ``torch.Generator``. Weights can
 instead be carried over from the JAX package with ``convert.py``.
+
+``dtype`` (``None`` = the input's) is a layer's computation dtype, as in the
+JAX package: the weights stay float32 (the master weights the optimizer and
+the checkpoint see) and are cast with the input on every call. With
+``torch.bfloat16`` the encoder's UNet and its two hidden MLP layers run in
+bf16; the mask softmax, the final 2-unit projection and the tanh stay in the
+input's dtype. The bias is added after the product, in that dtype, as flax
+does: rounding the product before the sum halves the gap to the JAX
+model's bf16 positions (tests/test_torch_bf16.py). The casts are explicit rather than ``torch.autocast``, which
+picks its own set of operations (it would also cast the final projection
+and the decoder's resize GEMMs).
 """
 from __future__ import annotations
 
@@ -30,22 +41,41 @@ def _fan_in_uniform_(module: nn.Module, fan_in: int,
 
 
 class TorchDense(nn.Linear):
-    """``nn.Linear`` with its kernel and bias drawn from ``generator``."""
+    """``nn.Linear`` with its kernel and bias drawn from ``generator``,
+    computing in ``dtype`` (see the module docstring)."""
 
     def __init__(self, in_features: int, out_features: int,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__(in_features, out_features)
         _fan_in_uniform_(self, in_features, generator)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if dt is None:
+            return super().forward(x)
+        return F.linear(x.to(dt), self.weight.to(dt)) + self.bias.to(dt)
 
 
 class TorchConv(nn.Conv2d):
-    """k x k SAME convolution (3 x 3 by default), NCHW."""
+    """k x k SAME convolution (3 x 3 by default), NCHW, computing in
+    ``dtype`` (see the module docstring)."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__(in_ch, out_ch, kernel_size,
                          padding=kernel_size // 2)
         _fan_in_uniform_(self, in_ch * kernel_size ** 2, generator)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if dt is None:
+            return super().forward(x)
+        return (self._conv_forward(x.to(dt), self.weight.to(dt), None)
+                + self.bias.to(dt)[:, None, None])
 
 
 def _max_pool2(x: torch.Tensor) -> torch.Tensor:
@@ -58,7 +88,8 @@ class ShallowUNet(nn.Module):
     post-resize convs (6 and 9) and a ReLU on the final 1x1 conv."""
 
     def __init__(self, in_ch: int, hidden: int = 8, out_features: int = 2,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         h = hidden
         shapes = [(in_ch, h), (h, h), (h, 2 * h), (2 * h, 2 * h),
@@ -66,9 +97,10 @@ class ShallowUNet(nn.Module):
                   (4 * h, 2 * h), (4 * h, 2 * h), (2 * h, 2 * h),
                   (2 * h, 2 * h), (3 * h, h), (h, h)]
         self.convs = nn.ModuleList(
-            [TorchConv(i, o, generator=generator) for i, o in shapes]
+            [TorchConv(i, o, generator=generator, dtype=dtype)
+             for i, o in shapes]
             + [TorchConv(h, out_features, kernel_size=1,
-                         generator=generator)])
+                         generator=generator, dtype=dtype)])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # [N, C, H, W]
         c = self.convs
@@ -101,7 +133,8 @@ class UNet(nn.Module):
     on the final 1x1 conv."""
 
     def __init__(self, in_ch: int, hidden: int = 16, out_features: int = 2,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         h = hidden
         shapes = [(in_ch, h), (h, h), (h, 2 * h), (2 * h, 2 * h),
@@ -110,9 +143,10 @@ class UNet(nn.Module):
                   (4 * h, 4 * h), (4 * h, 2 * h), (4 * h, 2 * h),
                   (2 * h, 2 * h), (2 * h, 2 * h), (3 * h, h), (h, h)]
         self.convs = nn.ModuleList(
-            [TorchConv(i, o, generator=generator) for i, o in shapes]
+            [TorchConv(i, o, generator=generator, dtype=dtype)
+             for i, o in shapes]
             + [TorchConv(h, out_features, kernel_size=1,
-                         generator=generator)])
+                         generator=generator, dtype=dtype)])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # [N, C, H, W]
         c = self.convs
@@ -160,6 +194,10 @@ class ConvolutionalEncoder(nn.Module):
     slots take part in the softmax: the others' logits become -1e6 (a hard
     gate), or with ``slot_gate_soft > 0`` are lowered by that much.
 
+    ``dtype`` is the UNet's and the two hidden MLP layers' computation
+    dtype; their outputs are cast back to the input's dtype before the
+    softmax and before the final projection.
+
     Input [N, C, H, W]. Returns (positions [N, n_objs*2] object-major,
     enc_masks [N, n_objs+1, H, W], masked_objs [n_objs*N, C, H, W]).
     """
@@ -167,7 +205,8 @@ class ConvolutionalEncoder(nn.Module):
     def __init__(self, input_hw, in_ch: int, n_objs: int = 2,
                  hidden_dim: int = 200, out_features: int = 2,
                  generator: Optional[torch.Generator] = None,
-                 active_slots: int = 0, slot_gate_soft: float = 0.0):
+                 active_slots: int = 0, slot_gate_soft: float = 0.0,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         height, width = input_hw
         self.input_hw = tuple(input_hw)
@@ -177,21 +216,21 @@ class ConvolutionalEncoder(nn.Module):
         self.slot_gate_soft = slot_gate_soft
         self.small = width < 40
         if self.small:
-            self.unet = ShallowUNet(in_ch, 8, n_objs, generator=generator)
+            self.unet = ShallowUNet(in_ch, 8, n_objs, generator, dtype)
             head_in = height * width * in_ch
         else:
-            self.unet = UNet(in_ch, 16, n_objs, generator=generator)
+            self.unet = UNet(in_ch, 16, n_objs, generator, dtype)
             head_in = (height // 2) * (width // 2) * in_ch
         self.dense = nn.ModuleList([
-            TorchDense(head_in, hidden_dim, generator),
-            TorchDense(hidden_dim, hidden_dim, generator),
+            TorchDense(head_in, hidden_dim, generator, dtype),
+            TorchDense(hidden_dim, hidden_dim, generator, dtype),
             TorchDense(hidden_dim, out_features, generator)])
 
     def forward(self, inp: torch.Tensor):
         n, ch = inp.shape[0], inp.shape[1]
         height, width = self.input_hw
         o = self.n_objs
-        logits = self.unet(inp)                                 # [N, o, H, W]
+        logits = self.unet(inp).to(inp.dtype)                   # [N, o, H, W]
         if 0 < self.active_slots < o:
             gate = (torch.arange(o, device=logits.device)
                     < self.active_slots)[None, :, None, None]
@@ -209,7 +248,7 @@ class ConvolutionalEncoder(nn.Module):
         x = masked if self.small else F.avg_pool2d(masked, 2, 2)
         x = x.permute(0, 2, 3, 1).reshape(o * n, -1)
         x = F.relu(self.dense[0](x))
-        x = F.relu(self.dense[1](x))
+        x = F.relu(self.dense[1](x)).to(inp.dtype)
         x = self.dense[2](x)                                    # [o*N, 2]
 
         x = x.reshape(o, n, self.out_features).transpose(0, 1)

@@ -1,14 +1,15 @@
 """PhysicsNet: the PAIG model as a ``torch.nn.Module``.
 
-Counterpart of ``paig_reproduction_tpu/models/physics_net.py`` with its
-default configuration: encoder -> velocity estimator -> spring-cell rollout
--> ST decoder, trained unsupervised from video.
+Counterpart of ``paig_reproduction_tpu/models/physics_net.py``: encoder ->
+velocity estimator -> physics-cell (or LSTM) rollout -> ST decoder, trained
+unsupervised from video.
 
 * Decoder assets (templates/contents/background) are computed once per
   forward pass.
 * The rollout is a Python loop over the (tiny) physics state; all B*T
   rollout frames are decoded afterwards in ONE batched decode, as the JAX
-  package does after its ``lax.scan``.
+  package does after its ``lax.scan``. The LSTM rollout is decoded the same
+  way (see ``_lstm_rollout``).
 * The public layout is the JAX package's ``[B, T, C, H, W]``; inside, the
   encoder runs NCHW and the decoder returns channels-last frames.
 * The loss consumes the fresh rollout output, so the velocity encoder and
@@ -23,8 +24,13 @@ The JAX model's extension fields are ported: the discovery aids
 (``init_state_fit``, ``refine_enc_pos``, ``refine_recons_pos``). The three
 physics cells are ported, each with the JAX model's parameters (spring:
 ``log_k``, ``log_equil``; gravity: ``log_g`` and the frozen ``log_m``;
-bouncing: none). bf16 (``compute_dtype``) is not ported yet: a value other
-than float32 raises ``NotImplementedError``, as does the LSTM cell.
+bouncing: none). ``cell_type="lstm"`` is the JAX model's black-box
+baseline: a stack of ``lstm_layers`` LSTM cells of ``recurrent_units`` and a
+``lstm_proj`` projection in place of the physics cell, with no physical
+parameter and no frame offset. ``compute_dtype="bfloat16"`` runs the
+encoder's UNet and hidden MLP layers in bf16 with float32 master weights
+(``models/blocks.py``); everything after the encoder's positions, the decode
+included, stays float32.
 """
 from __future__ import annotations
 
@@ -37,6 +43,7 @@ from torch import nn
 
 from paig_reproduction_tpu_torch.models.blocks import (
     ConvolutionalEncoder,
+    TorchDense,
     VariableFromNetwork,
     VelocityEncoder,
 )
@@ -81,8 +88,9 @@ EXTENSION_DEFAULTS = {
     "refine_enc_pos": 0,
     "refine_recons_pos": 0,
 }
-# Fields of which only the default is ported.
-UNPORTED_FIELDS = ("compute_dtype",)
+# compute_dtype's values and the encoder's computation dtype for each
+# (None: the input's, float32).
+COMPUTE_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
 # The inference enhancers: parameter-free, so a model without them
 # (``without_enhancers``) shares every parameter.
 ENHANCERS = ("init_state_fit", "refine_enc_pos", "refine_recons_pos")
@@ -92,7 +100,33 @@ CELL_PARAMS = {
     "spring_ode_cell": ("log_k", "log_equil"),
     "gravity_ode_cell": ("log_g", "log_m"),
     "bouncing_ode_cell": (),
+    "lstm": (),
 }
+
+
+def _lstm_cell(in_features: int, hidden: int,
+               generator: Optional[torch.Generator]) -> nn.LSTMCell:
+    """An ``nn.LSTMCell`` with flax ``OptimizedLSTMCell``'s parameters and
+    initialisation. flax keeps a kernel per gate (i, f, g, o: torch's order
+    too), input kernels LeCun-normal without bias, recurrent kernels
+    orthogonal with a zero bias. So ``weight_ih`` is four truncated-normal
+    blocks, ``weight_hh`` four orthogonal blocks, ``bias_hh`` zero, and
+    ``bias_ih`` is a zero buffer rather than a parameter: a trained input
+    bias would move the gates' bias at twice the rate."""
+    cell = nn.LSTMCell(in_features, hidden)
+    # flax's lecun_normal: a normal truncated at two deviations, scaled so
+    # that its variance is 1/fan_in.
+    std = np.sqrt(1.0 / in_features) / 0.87962566103423978
+    with torch.no_grad():
+        nn.init.trunc_normal_(cell.weight_ih, std=std, a=-2 * std,
+                              b=2 * std, generator=generator)
+        for block in cell.weight_hh.view(4, hidden, hidden):
+            nn.init.orthogonal_(block, generator=generator)
+        cell.bias_hh.zero_()
+    del cell.bias_ih
+    cell.register_buffer("bias_ih", torch.zeros(4 * hidden),
+                         persistent=False)
+    return cell
 
 
 class PhysicsNet(nn.Module):
@@ -100,6 +134,7 @@ class PhysicsNet(nn.Module):
     fields; ``generator`` seeds the initial weights."""
 
     def __init__(self, task: str = "spring_color",
+                 recurrent_units: int = 100, lstm_layers: int = 1,
                  cell_type: str = "spring_ode_cell",
                  seq_len: int = 12, input_steps: int = 4, pred_steps: int = 6,
                  autoencoder_loss: float = 0.0, alt_vel: bool = False,
@@ -110,18 +145,21 @@ class PhysicsNet(nn.Module):
                  generator: Optional[torch.Generator] = None,
                  **extensions):
         super().__init__()
-        for name, value in extensions.items():
+        for name in extensions:
             if name not in EXTENSION_DEFAULTS:
                 raise TypeError(f"unexpected argument {name!r}")
-            if name in UNPORTED_FIELDS and value != EXTENSION_DEFAULTS[name]:
-                raise NotImplementedError(
-                    f"{name}={value!r} is not ported yet (only "
-                    f"{EXTENSION_DEFAULTS[name]!r})")
         if task not in COORD_UNITS:
             raise ValueError(f"unknown task {task!r}")
-        if cell_type not in cells.CELLS:
-            raise NotImplementedError(f"cell {cell_type!r} is not ported "
-                                      f"yet; ported: {sorted(cells.CELLS)}")
+        if cell_type not in CELL_PARAMS:
+            raise ValueError(f"unknown cell {cell_type!r}; cells: "
+                             f"{sorted(CELL_PARAMS)}")
+        if lstm_layers < 1:
+            raise ValueError(f"lstm_layers={lstm_layers} (need >= 1)")
+        dtype = extensions.get("compute_dtype",
+                               EXTENSION_DEFAULTS["compute_dtype"])
+        if dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"unknown compute_dtype {dtype!r}; dtypes: "
+                             f"{sorted(COMPUTE_DTYPES)}")
         if not (seq_len > input_steps + pred_steps and input_steps >= 1
                 and pred_steps >= 1):
             raise ValueError("need seq_len > input_steps + pred_steps and "
@@ -135,7 +173,8 @@ class PhysicsNet(nn.Module):
         # The constructor's arguments, to build a model of the same shape
         # (fresh weights for --discovery_restarts arms).
         self.config = dict(
-            task=task, cell_type=cell_type, seq_len=seq_len,
+            task=task, recurrent_units=recurrent_units,
+            lstm_layers=lstm_layers, cell_type=cell_type, seq_len=seq_len,
             input_steps=input_steps, pred_steps=pred_steps,
             autoencoder_loss=autoencoder_loss, alt_vel=alt_vel, color=color,
             input_size=input_size, encoder_type=encoder_type,
@@ -175,13 +214,23 @@ class PhysicsNet(nn.Module):
         self.encoder = ConvolutionalEncoder(
             (img, img), ch, n_objs=o, hidden_dim=200, out_features=2,
             generator=generator, active_slots=self.active_slots,
-            slot_gate_soft=self.slot_gate_soft)
+            slot_gate_soft=self.slot_gate_soft,
+            dtype=COMPUTE_DTYPES[self.compute_dtype])
         self.velocity_encoder = (
             VelocityEncoder(alt_vel, input_steps, o, generator)
             if input_steps > 1 else None)
         for name in CELL_PARAMS[cell_type]:
             setattr(self, name, nn.Parameter(torch.zeros(())))
-        if self.learn_frame_offset:
+        self.lstm_layers = lstm_layers
+        if cell_type == "lstm":
+            for i in range(lstm_layers):
+                setattr(self, f"lstm_{i}", _lstm_cell(
+                    self.coord_units if i == 0 else recurrent_units,
+                    recurrent_units, generator))
+            self.lstm_proj = TorchDense(recurrent_units, self.coord_units,
+                                        generator)
+        # The JAX model's LSTM branch creates no frame offset.
+        if self.learn_frame_offset and cell_type != "lstm":
             self.frame_offset = nn.Parameter(
                 torch.zeros(self.coord_units // 2))
         self.decoder_cfg = DecoderConfig(img_hw=(img, img), tmpl_size=t,
@@ -269,41 +318,18 @@ class PhysicsNet(nn.Module):
         pos = obs_win[:, -1]
 
         # --- rollout, then one batched decode of every rollout frame ------
-        step_fn, dt = cells.CELLS[self.cell_type]
-        params = cells.CellParams.initial(inp.device)._replace(
-            **{name: getattr(self, name)
-               for name in CELL_PARAMS[self.cell_type]})
-        frame_off = (self.frame_offset if self.learn_frame_offset else
-                     torch.zeros(cu2, dtype=inp.dtype, device=inp.device))
-        pos_phys0, vel0 = pos + frame_off, vel
-        if self.init_state_fit > 0 and s > 1:
-            if self.cell_type == "bouncing_ode_cell":
-                # Reflections break the Gauss-Newton linearization; the
-                # unfolded-coordinate fit is exact for free flight.
-                pos_phys0, vel0 = fit_initial_state_bouncing(
-                    obs_win + frame_off, vel, dt)
-            else:
-                pos_phys0, vel0 = fit_initial_state(
-                    step_fn, params, obs_win + frame_off, vel, dt,
-                    self.cell_substeps, self.init_state_fit)
         n_steps = self.pred_steps + self.extrap_steps
-        p, v = pos_phys0, vel0
-        pos_roll, vel_roll = [], []
-        for _ in range(n_steps):
-            p, v = step_fn(params, p, v, dt, substeps=self.cell_substeps)
-            # BPTT stabilizer: identity forward, clipped cotangent backward.
-            p = cells.clip_cotangent(p)
-            v = cells.clip_cotangent(v)
-            pos_roll.append(p)
-            vel_roll.append(v)
-        pos_roll = torch.stack(pos_roll, dim=1) - frame_off         # [B, T, k]
-        vel_roll = torch.stack(vel_roll, dim=1)
+        if self.cell_type == "lstm":
+            start, pos_roll, vel_roll = self._lstm_rollout(pos, vel, n_steps)
+            dt = None
+        else:
+            start, pos_roll, vel_roll, dt = self._cell_rollout(
+                inp, obs_win, pos, vel, n_steps)
         frames_flat, _ = st_decode(assets, pos_roll.reshape(b * n_steps, -1),
                                    cfg, backend=self.decoder_backend)
         output_seq = frames_flat.reshape(b, n_steps, img, img, ch)
         pos_vel_seq = torch.cat(
-            [torch.cat([pos_phys0 - frame_off, vel0], dim=1)[:, None],
-             torch.cat([pos_roll, vel_roll], dim=2)], dim=1)
+            [start[:, None], torch.cat([pos_roll, vel_roll], dim=2)], dim=1)
 
         aux = {"recons_out": recons_out.permute(0, 1, 4, 2, 3),
                "enc_pos": enc_pos,
@@ -324,6 +350,68 @@ class PhysicsNet(nn.Module):
                 "masked_objs": masked_objs.permute(0, 2, 3, 1),
             }
         return output_seq.permute(0, 1, 4, 2, 3), aux
+
+    def _cell_rollout(self, inp, obs_win, pos, vel, n_steps):
+        """The physics cell's rollout from the encoder's last position and
+        the estimated velocity (after the state fit, with
+        ``init_state_fit``), in the learned frame offset's coordinates.
+        Returns (the start state [B, coord_units], positions and velocities
+        [B, n_steps, cu2] in encoder coordinates, the cell's dt)."""
+        cu2 = self.coord_units // 2
+        step_fn, dt = cells.CELLS[self.cell_type]
+        params = cells.CellParams.initial(inp.device)._replace(
+            **{name: getattr(self, name)
+               for name in CELL_PARAMS[self.cell_type]})
+        frame_off = (self.frame_offset if self.learn_frame_offset else
+                     torch.zeros(cu2, dtype=inp.dtype, device=inp.device))
+        pos_phys0, vel0 = pos + frame_off, vel
+        if self.init_state_fit > 0 and self.input_steps > 1:
+            if self.cell_type == "bouncing_ode_cell":
+                # Reflections break the Gauss-Newton linearization; the
+                # unfolded-coordinate fit is exact for free flight.
+                pos_phys0, vel0 = fit_initial_state_bouncing(
+                    obs_win + frame_off, vel, dt)
+            else:
+                pos_phys0, vel0 = fit_initial_state(
+                    step_fn, params, obs_win + frame_off, vel, dt,
+                    self.cell_substeps, self.init_state_fit)
+        p, v = pos_phys0, vel0
+        pos_roll, vel_roll = [], []
+        for _ in range(n_steps):
+            p, v = step_fn(params, p, v, dt, substeps=self.cell_substeps)
+            # BPTT stabilizer: identity forward, clipped cotangent backward.
+            p = cells.clip_cotangent(p)
+            v = cells.clip_cotangent(v)
+            pos_roll.append(p)
+            vel_roll.append(v)
+        pos_roll = torch.stack(pos_roll, dim=1) - frame_off         # [B, T, k]
+        return (torch.cat([pos_phys0 - frame_off, vel0], dim=1), pos_roll,
+                torch.stack(vel_roll, dim=1), dt)
+
+    def _lstm_rollout(self, pos, vel, n_steps):
+        """The black-box baseline: the LSTM stack, its carries at zero,
+        reads ``[pos, vel]`` each step and ``lstm_proj`` gives the next
+        ``[pos, vel]``. No state fit, frame offset or cotangent clip, as in
+        the JAX model's branch. The JAX loop decodes each step's positions
+        as it goes (T decodes of B frames); the decoded frame never feeds
+        back into the LSTM, so the caller decodes all B*T positions in one
+        call instead: the same function in fewer launches. Returns (the
+        start state, positions and velocities [B, n_steps, cu2])."""
+        b = pos.shape[0]
+        cells_ = [getattr(self, f"lstm_{i}") for i in range(self.lstm_layers)]
+        carries = [(pos.new_zeros(b, c.hidden_size),
+                    pos.new_zeros(b, c.hidden_size)) for c in cells_]
+        start = torch.cat([pos, vel], dim=1)
+        hid, pos_vels = start, []
+        for _ in range(n_steps):
+            for i, cell in enumerate(cells_):
+                carries[i] = cell(hid, carries[i])
+                hid = carries[i][0]
+            hid = self.lstm_proj(hid)
+            pos_vels.append(hid)
+        pos_vels = torch.stack(pos_vels, dim=1)                  # [B, T, k]
+        cu2 = self.coord_units // 2
+        return start, pos_vels[..., :cu2], pos_vels[..., cu2:]
 
     def _penalties(self, inp, template_raw, enc_masks, enc_pos, vel,
                    output_seq, pos_vel_seq, dt) -> Dict[str, torch.Tensor]:
@@ -349,10 +437,11 @@ class PhysicsNet(nn.Module):
         attn_overlap_penalty = 0.5 * torch.mean(torch.sum(pair, dim=(1, 2)))
 
         # Velocity anchor: the central difference around the rollout's start
-        # frame s-1 (frame s is inside the encoder window).
+        # frame s-1 (frame s is inside the encoder window). The LSTM has no
+        # dt and no anchor.
         vel_anchor_penalty = torch.zeros((), dtype=inp.dtype,
                                          device=inp.device)
-        if s > 1:
+        if s > 1 and dt is not None:
             vel_fd = (enc_pos[:, s] - enc_pos[:, s - 2]) / (2 * dt)
             vel_anchor_penalty = torch.mean((vel - vel_fd) ** 2)
 

@@ -19,11 +19,14 @@ import torch
 @functools.lru_cache(maxsize=32)
 def _resize_matrix(n_in: int, n_out: int, dtype, device) -> torch.Tensor:
     """W [n_out, n_in] with W @ signal == the linear resize of the signal,
-    by jax.image.resize's weight rule (antialias off)."""
+    by jax.image.resize's weight rule (antialias off), computed in float32
+    and cast to ``dtype`` as jax.image.resize casts its weights to the
+    input's dtype."""
+    f32 = torch.float32
     inv_scale = 1.0 / (n_out / n_in)
-    sample = ((torch.arange(n_out, dtype=dtype, device=device) + 0.5)
+    sample = ((torch.arange(n_out, dtype=f32, device=device) + 0.5)
               * inv_scale - 0.5)                                  # [out]
-    taps = torch.arange(n_in, dtype=dtype, device=device)         # [in]
+    taps = torch.arange(n_in, dtype=f32, device=device)           # [in]
     w = torch.clamp(1.0 - torch.abs(sample[:, None] - taps[None, :]),
                     min=0.0)
     total = w.sum(dim=1, keepdim=True)
@@ -32,7 +35,7 @@ def _resize_matrix(n_in: int, n_out: int, dtype, device) -> torch.Tensor:
                     w / torch.where(total != 0, total, torch.ones_like(total)),
                     torch.zeros_like(w))
     inside = (sample >= -0.5) & (sample <= n_in - 0.5)
-    return torch.where(inside[:, None], w, torch.zeros_like(w))
+    return torch.where(inside[:, None], w, torch.zeros_like(w)).to(dtype)
 
 
 def resize_bilinear(x: torch.Tensor, out_hw) -> torch.Tensor:

@@ -3,6 +3,7 @@
     python -m paig_reproduction_tpu_torch.profile_step [--batch_size 100]
         [--task spring_color] [--data_dir DIR] [--autoencoder_loss 3.0]
         [--init_state_fit N] [--learn_frame_offset]
+        [--cell_type lstm] [--compute_dtype bfloat16]
 
 Builds the task's model as the CLI does (seed 0, the task's train file
 under ``--data_dir``, the tracked datasets by default), with the given
@@ -67,19 +68,24 @@ def main(argv=None):
     parser.add_argument("--autoencoder_loss", type=float, default=3.0)
     parser.add_argument("--init_state_fit", type=int, default=0)
     parser.add_argument("--learn_frame_offset", action="store_true")
+    parser.add_argument("--cell_type", default="",
+                        help="the task's cell by default")
+    parser.add_argument("--compute_dtype", default="float32",
+                        choices=("float32", "bfloat16"))
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA device")
 
     (data_file, _, cell_type, seq_len, _, input_steps, pred_steps,
      input_size) = TASK_TABLE[args.task]
-    model = PhysicsNet(task=args.task, cell_type=cell_type,
+    model = PhysicsNet(task=args.task, cell_type=args.cell_type or cell_type,
                        seq_len=seq_len, input_steps=input_steps,
                        pred_steps=pred_steps,
                        autoencoder_loss=args.autoencoder_loss,
                        color=True, input_size=input_size,
                        init_state_fit=args.init_state_fit,
                        learn_frame_offset=args.learn_frame_offset,
+                       compute_dtype=args.compute_dtype,
                        generator=torch.Generator().manual_seed(0))
     trainer = Trainer(model, device="cuda")
     trainer.get_data(get_iterators(os.path.join(args.data_dir, data_file),
@@ -117,7 +123,8 @@ def main(argv=None):
                if e.device_type == torch.autograd.DeviceType.CUDA
                and not getattr(e, "is_user_annotation", False)]
     per_step = wall_us / args.steps / 1e3
-    print(f"{args.task}, B={args.batch_size}, {args.steps} traced steps on "
+    print(f"{args.task}, {model.cell_type}, {args.compute_dtype}, "
+          f"B={args.batch_size}, {args.steps} traced steps on "
           f"{torch.cuda.get_device_name(0)}")
     untraced_ms = float(np.median(untraced))
     print(f"untraced step: median {untraced_ms:.3f} ms over 10")

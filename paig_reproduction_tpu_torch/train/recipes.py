@@ -58,6 +58,7 @@ class RecipeMixin:
         logging or trigger machinery (the discovery arms)."""
         target = self.train_iterator.epochs_completed + n_epochs
         while self.train_iterator.epochs_completed < target:
+            self._wd_pet()
             self.train_step(self.train_iterator.next_index_batch(batch_size))
 
     def _quick_valid_recons(self, batch_size) -> float:

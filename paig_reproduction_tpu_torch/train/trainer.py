@@ -19,10 +19,21 @@ the ``--auto_rescue`` surgery after a stalled valid eval, and
 the inference enhancers, sharing its parameters; evals keep them). The
 recipe state goes into every checkpoint and comes back on restore.
 
-Not ported yet: the watchdog, profiling and multi-device training.
+The runtime extras, as in the JAX trainer: the hung-device watchdog
+(``watchdog_secs``, ``watchdog_floor_secs``; ``train/watchdog.py``), armed at
+the first batch, petted once per train and eval batch and stopped before the
+run's last artifacts; a ``torch.profiler`` trace of ``train_model``'s
+training part (``profile_dir``: a Chrome trace that TensorBoard also reads,
+where the JAX trainer writes a ``jax.profiler`` one); and ``debug_nans``,
+the counterpart of ``jax_debug_nans``: a ``FloatingPointError`` at the first
+forward whose outputs or losses hold a NaN, or the first backward (autograd's
+anomaly mode with its NaN check) or gradient that does.
+
+Not ported yet: multi-device training.
 """
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 import shutil
@@ -71,7 +82,7 @@ class Trainer(RecipeMixin):
     inference enhancers."""
 
     def __init__(self, model: PhysicsNet, device="cuda", seed: int = 0,
-                 enhancers_eval_only: bool = False):
+                 enhancers_eval_only: bool = False, profile_dir: str = ""):
         self.device = torch.device(device)
         if self.device.type == "cuda":
             use_full_f32()
@@ -113,6 +124,13 @@ class Trainer(RecipeMixin):
         self._recons_history = []
         # Epochs the discovery arms used before train_model's loop.
         self._epochs_consumed = 0
+        # Runtime extras (module docstring). The watchdog is made at the
+        # first pet, so a trainer with watchdog_secs=0 starts no thread.
+        self.profile_dir = profile_dir
+        self.watchdog_secs = 0.0
+        self.watchdog_floor_secs = 0.0
+        self._watchdog = None
+        self.debug_nans = False
 
     # ----- data ------------------------------------------------------------
     def get_data(self, data_iterators):
@@ -250,12 +268,78 @@ class Trainer(RecipeMixin):
             logging.Formatter("%(asctime)s - %(name)s - %(message)s"))
         logger.addHandler(fh)
 
+    # ----- runtime extras -----------------------------------------------------
+    def _wd_pet(self):
+        """Heartbeat of the watchdog, once per train and eval batch; the
+        first one arms it."""
+        wd = self._watchdog
+        if wd is None:
+            if self.watchdog_secs <= 0:
+                return
+            from paig_reproduction_tpu_torch.train.watchdog import (
+                DeviceWatchdog,
+            )
+            wd = self._watchdog = DeviceWatchdog(
+                self.watchdog_secs,
+                adaptive_floor_secs=self.watchdog_floor_secs)
+            wd.start()
+        wd.pet()
+
+    def _start_profiler(self):
+        from torch.profiler import (
+            ProfilerActivity,
+            profile,
+            tensorboard_trace_handler,
+        )
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        prof = profile(activities=activities,
+                       on_trace_ready=tensorboard_trace_handler(
+                           self.profile_dir))
+        prof.start()
+        return prof
+
+    @contextlib.contextmanager
+    def _nan_guard(self):
+        """With ``debug_nans``: autograd's anomaly mode with its NaN check
+        around a step, its error raised as the FloatingPointError that
+        jax_debug_nans raises."""
+        if not self.debug_nans:
+            yield
+            return
+        with torch.autograd.set_detect_anomaly(True, check_nan=True):
+            try:
+                yield
+            except RuntimeError as e:
+                # Anomaly mode's own error: "Function 'XBackward0' returned
+                # nan values in its 0th output."
+                if "returned nan values" not in str(e):
+                    raise
+                raise FloatingPointError(f"{e} (--debug_nans)") from e
+
+    @staticmethod
+    def _raise_on_nan(what, tensors: Dict[str, torch.Tensor]):
+        """FloatingPointError naming the tensors that hold a NaN (one host
+        sync for all of them)."""
+        flags = torch.stack([torch.isnan(t).any() for t in tensors.values()])
+        if bool(flags.any()):
+            bad = [k for k, f in zip(tensors, flags.tolist()) if f]
+            raise FloatingPointError(f"NaN in the {what}: {bad} "
+                                     f"(--debug_nans)")
+
     # ----- steps -------------------------------------------------------------
     def _losses(self, batch, net=None, aux_scale=1.0):
         net = self.model if net is None else net
         out, aux = net(batch)
-        return compute_losses(net, batch, out, aux["recons_out"], aux,
-                              aux_scale=aux_scale)
+        loss, eval_losses = compute_losses(net, batch, out, aux["recons_out"],
+                                           aux, aux_scale=aux_scale)
+        if self.debug_nans:
+            self._raise_on_nan("forward", {
+                "output": out, **{k: aux[k] for k in (
+                    "recons_out", "enc_pos", "pos_vel_seq")},
+                "train_loss": loss, **eval_losses})
+        return loss, eval_losses
 
     def train_step(self, idx) -> Dict[str, torch.Tensor]:
         """One optimizer step on the train-split sequences ``idx``, with the
@@ -264,11 +348,16 @@ class Trainer(RecipeMixin):
         batch = gather_batch(self._split_u8("train"), idx)
         opt_lib.set_lr(self.optimizer,
                        self._lr_at(self.step - self._opt_step0))
-        loss, eval_losses = self._losses(
-            batch, self.train_net,
-            aux_scale=1.0 if self.step >= self.aux_warmup_steps else 0.0)
-        self.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        with self._nan_guard():
+            loss, eval_losses = self._losses(
+                batch, self.train_net,
+                aux_scale=1.0 if self.step >= self.aux_warmup_steps else 0.0)
+            self.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+        if self.debug_nans:
+            self._raise_on_nan("gradient", {
+                n: p.grad for n, p in self.model.named_parameters()
+                if p.grad is not None})
         if self.optimizer.grad_clip > 0:
             opt_lib.clip_train_group_(self.optimizer,
                                       self.optimizer.grad_clip)
@@ -282,11 +371,13 @@ class Trainer(RecipeMixin):
                     eval_every_n_epochs, print_interval, debug=False):
         """Pre-train valid eval, per-epoch batch loop keyed on the
         iterator's epoch counter, periodic valid evals and saves, a final
-        save, then the test eval."""
+        save, then the test eval. With ``profile_dir`` the profiler traces
+        everything before the test eval, as the JAX trainer's does."""
         self.batch_size = batch_size
         self.add_train_logger()
         zipdir(root_path, self.save_dir)
         logger.info("\n".join(sys.argv))
+        prof = self._start_profiler() if self.profile_dir else None
 
         if not debug and epochs > 0:
             valid = self.eval_performance(batch_size, type="valid")
@@ -299,6 +390,7 @@ class Trainer(RecipeMixin):
         for ep in range(1, epochs + 1):
             self._cur_epoch = ep
             while self.train_iterator.epochs_completed < ep:
+                self._wd_pet()
                 step = self.step
                 idx = self.train_iterator.next_index_batch(batch_size)
                 metrics = self.train_step(idx)
@@ -329,8 +421,12 @@ class Trainer(RecipeMixin):
             self.save()
             logger.info("throughput: %.1f video frames/sec (%d frames, "
                         "%.1fs incl. eval)", frames / dt, frames, dt)
+        if prof is not None:
+            prof.stop()
+            logger.info("profiler trace written to %s", self.profile_dir)
 
-        test_metrics = self.eval_performance(batch_size, type="test")
+        test_metrics = self.eval_performance(batch_size, type="test",
+                                             last=True)
         log_metrics(logger, "test - epoch=%s" % epochs, test_metrics)
         self.flush_artifacts()
         return test_metrics
@@ -389,14 +485,19 @@ class Trainer(RecipeMixin):
         data_u8 = self._split_u8(type)
         per_batch = []
         for idx in idxs:
+            self._wd_pet()
             _, eval_losses = self._losses(gather_batch(data_u8, idx))
             per_batch.append(torch.stack([eval_losses[k] for k in EVAL_KEYS]))
         return torch.stack(per_batch).cpu().numpy(), idxs
 
-    def eval_performance(self, batch_size, type="valid"):
+    def eval_performance(self, batch_size, type="valid", last=False):
         """Whole-epoch metric averages over the split's batches, the
-        outputs.npz dump, then the visualization."""
+        outputs.npz dump, then the visualization. ``last`` (the run's final
+        eval) stops the watchdog once the batches are done: the artifacts
+        that follow emit no pets."""
         outputs, idxs = self._eval_losses(type, batch_size)
+        if last and self._watchdog is not None:
+            self._watchdog.stop()
         self._write_outputs_npz(
             self.get_iterator(type).X[idxs.reshape(-1)], outputs)
         self.visualize_sequence()

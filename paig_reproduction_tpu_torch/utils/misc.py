@@ -38,3 +38,6 @@ def use_full_f32():
     in the decoder), and parity with it needs the same here."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # bf16 GEMMs (--compute_dtype=bfloat16) accumulate in f32 as the JAX
+    # package's do, not in bf16 split-K partial sums.
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False

@@ -533,3 +533,71 @@ def test_bounce_one1_scores_as_jax(tmp_path, paig_log, monkeypatch):
     np.testing.assert_allclose(
         [port["eval_pred_loss"], port["eval_extrap_loss"],
          port["eval_recons_loss"]], ref, rtol=1e-4)
+
+
+@pytest.mark.parametrize("optimizer", ["rmsprop", "adam"])
+def test_lstm_checkpoint_round_trip(tmp_path, optimizer):
+    """A JAX LSTM model's checkpoint (two layers; params and the RMSprop or
+    Adam state after one update) written and restored with orbax, converted
+    and restored by the port: the weights equal the JAX model's gate by
+    gate, and one more step on the same gradients equals optax's (rtol 1e-6
+    / atol 1e-7), which needs the converted state."""
+    import optax
+    import orbax.checkpoint as ocp
+
+    from paig_reproduction_tpu.train import optimizers as jax_opt
+    from paig_reproduction_tpu_torch.train import optimizers
+
+    kw = dict(task="spring_color", cell_type="lstm", recurrent_units=8,
+              lstm_layers=2, seq_len=6, input_steps=2, pred_steps=2,
+              input_size=16 * 16)
+    j_model = JaxPhysicsNet(**kw)
+    x = np.random.RandomState(0).rand(1, 6, 3, 16, 16).astype(np.float32)
+    params = jax.jit(j_model.init)(jax.random.PRNGKey(0), x)["params"]
+    schedule = jax_opt.lr_schedule(6e-4, 2, 2, True)
+    tx = jax_opt.build_optimizer(optimizer, schedule, params)
+    rs = np.random.RandomState(1)
+
+    def grads():
+        return jax.tree.map(
+            lambda a: np.asarray(rs.randn(*np.shape(a)), np.float32), params)
+
+    @jax.jit
+    def step(g, opt_state, params):
+        updates, opt_state = tx.update(g, opt_state, params)
+        return optax.apply_updates(params, updates), opt_state
+
+    params, opt_state = step(grads(), tx.init(params), params)
+    jax_ckpt.save_checkpoint(str(tmp_path / "jax"), {
+        "params": params, "opt_state": opt_state, "step": np.asarray(1)})
+    tree = jax.device_get(ocp.PyTreeCheckpointer().restore(
+        str(tmp_path / "jax" / "model.ckpt")))
+    checkpoint.save_checkpoint(str(tmp_path), flax_checkpoint_to_port(tree))
+
+    model = PhysicsNet(**kw)
+    opt = optimizers.build_optimizer(optimizer, model.named_parameters(),
+                                     6e-4)
+    assert checkpoint.restore_checkpoint(str(tmp_path), model,
+                                         opt)["step"] == 1
+    host = jax.device_get(params)
+    for i in range(2):
+        cell = model.get_submodule(f"lstm_{i}")
+        for j, gate in enumerate("ifgo"):
+            rows = slice(8 * j, 8 * (j + 1))
+            ref = host[f"lstm_{i}"]
+            np.testing.assert_array_equal(
+                cell.weight_ih.detach()[rows].T, ref["i" + gate]["kernel"])
+            np.testing.assert_array_equal(
+                cell.weight_hh.detach()[rows].T, ref["h" + gate]["kernel"])
+            np.testing.assert_array_equal(cell.bias_hh.detach()[rows],
+                                          ref["h" + gate]["bias"])
+
+    g2 = grads()
+    ref = flax_to_state_dict(jax.device_get(step(g2, opt_state, params)[0]))
+    optimizers.set_lr(opt, optimizers.lr_schedule(6e-4, 2, 2, True)(1))
+    for name, g in flax_to_state_dict(g2).items():
+        model.get_parameter(name).grad = g
+    opt.step()
+    for name, p in model.named_parameters():
+        np.testing.assert_allclose(p.detach().numpy(), ref[name].numpy(),
+                                   rtol=1e-6, atol=1e-7, err_msg=name)

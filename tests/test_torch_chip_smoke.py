@@ -185,3 +185,52 @@ def test_task_timed_shapes_are_the_tasks_decodes():
         for frames in (inp + pred, seq - inp, test_seq - inp):
             assert (100 * frames, img, img // 2, o, 3) in \
                 chip_smoke.TIMED_SHAPES, (task, frames)
+
+
+@pytest.mark.parametrize("extra", [chip_smoke.LSTM_ARGS,
+                                   chip_smoke.BF16_ARGS],
+                         ids=["lstm", "bf16"])
+def test_variant_launches_count_a_cli_run(tmp_path, monkeypatch, extra):
+    """The lstm and bf16 phases' flags, run tiny on the CPU (8 train, 4
+    valid and 4 test sequences, B=4, 1 epoch): the kernel's wrapper is
+    called as chip_smoke.expected_launches says (the LSTM rollout in one
+    decode), and the model is the phase's."""
+    import logging
+
+    from paig_reproduction_tpu_torch import cli
+
+    _tiny_data(tmp_path)
+    fused = tkernel.st_decode_fused
+    calls = []
+    monkeypatch.setattr(tkernel, "st_decode_fused",
+                        lambda *a: calls.append(1) or fused(*a))
+    monkeypatch.setenv("PAIG_VIZ_EXAMPLES", "1")
+    argv = [a for a in chip_smoke.TRAIN_ARGS if a != "--device=cuda"]
+    logger = logging.getLogger("paig")
+    handlers = list(logger.handlers)
+    try:
+        trainer, test_trainer = cli.main(argv + extra + [
+            "--batch_size=4", "--epochs=1", f"--data_dir={tmp_path}",
+            f"--save_dir={tmp_path / 'run'}", "--device=cpu"])
+    finally:
+        for h in set(logger.handlers) - set(handlers):
+            logger.removeHandler(h)
+            h.close()
+    assert len(calls) == chip_smoke.expected_launches(
+        trainer.step, 4, 4, 4, batch_size=4, epochs=1) == 20
+    flags = dict(a[2:].split("=") for a in extra)
+    for model in (trainer.model, test_trainer.model):
+        assert model.cell_type == flags.get("cell_type", "spring_ode_cell")
+        assert model.compute_dtype == flags.get("compute_dtype", "float32")
+
+
+def test_hang_under_watchdog_exits_75(tmp_path):
+    """The runtime phase's hung run, tiny on the CPU: the subprocess's
+    train step sleeps past the watchdog, which ends it with 75."""
+    _tiny_data(tmp_path)
+    argv = [a for a in chip_smoke.TRAIN_ARGS if a != "--device=cuda"]
+    code, fired, seconds = chip_smoke.hang_under_watchdog(argv + [
+        "--batch_size=4", f"--data_dir={tmp_path}",
+        f"--save_dir={tmp_path / 'run'}", "--device=cpu"])
+    assert code == 75 and len(fired) == 1
+    assert seconds < 100

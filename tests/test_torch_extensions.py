@@ -79,15 +79,12 @@ def _pair(fields, inp, offset=None):
 
 
 def test_every_field_is_ported():
-    """Only bf16 is left: it comes with slice 5."""
+    """Every extension field builds at a value other than its default,
+    bf16 included (its parity: tests/test_torch_bf16.py)."""
     for name, default in EXTENSION_DEFAULTS.items():
         value = {bool: True, float: 0.5, int: 1, str: "bfloat16"}[
             type(default)]
-        if name == "compute_dtype":
-            with pytest.raises(NotImplementedError):
-                PhysicsNet(**KW, **{name: value})
-        else:
-            PhysicsNet(**KW, **{name: value})
+        PhysicsNet(**KW, **{name: value})
 
 
 @pytest.mark.parametrize("fields", FIELDS, ids=lambda f: ",".join(f))

@@ -1,8 +1,10 @@
 """The port's dataset generators (data/generators.py, data/generate.py) and
 assets (data/assets.py) against the JAX package's: each preset generator's
 uint8 output is byte-equal to the JAX generator's at the same seed (a few
-sl12 sequences), the presets name the same files with the same arguments,
-and the tracked digit file is the JAX package's sklearn digits.
+sl12 sequences), and so are the three generators no preset uses (the
+coordinate file's float64 too); the presets name the same files with the
+same arguments, and the tracked digit file is the JAX package's sklearn
+digits.
 """
 import os
 
@@ -11,7 +13,8 @@ import pytest
 
 from paig_reproduction_tpu.data import assets as jax_assets
 from paig_reproduction_tpu.data import generate as jax_generate
-from paig_reproduction_tpu_torch.data import assets, generate
+from paig_reproduction_tpu.data import generators as jax_generators
+from paig_reproduction_tpu_torch.data import assets, generate, generators
 
 TASKS = ["bouncing_balls", "3bp_color", "spring_color_half",
          "mnist_spring_color"]
@@ -48,6 +51,31 @@ def test_generator_bytes_equal_jax(task, tmp_path, no_mnist_cache):
     with open(tmp_path / "port_samples.jpg", "rb") as f:
         data = f.read()
     assert data[:2] == b"\xff\xd8" and data[-2:] == b"\xff\xd9"
+
+
+@pytest.mark.parametrize("name,kw", [
+    ("generate_bouncing_ball_dataset", dict(seq_len=12, box_size=32.0)),
+    ("generate_falling_ball_dataset", dict(seq_len=8)),
+    ("generate_falling_bouncing_ball_dataset",
+     dict(seq_len=12, vx0_max=4.0, vy0_max=4.0)),
+    ("generate_falling_bouncing_ball_dataset",
+     dict(seq_len=6, g=0.0, cifar_background=True))],
+    ids=["bouncing_coords", "falling", "falling_bouncing",
+         "falling_bouncing_cifar"])
+def test_unpreset_generators_equal_jax(name, kw, tmp_path, no_mnist_cache):
+    sizes = dict(train_set_size=3, valid_set_size=1, test_set_size=2)
+    getattr(jax_generators, name)(str(tmp_path / "jax.npz"), **sizes, **kw)
+    getattr(generators, name)(str(tmp_path / "port.npz"), **sizes, **kw)
+    with np.load(tmp_path / "jax.npz") as a, \
+            np.load(tmp_path / "port.npz") as b:
+        assert sorted(a.files) == sorted(b.files) == [
+            "test_x", "train_x", "valid_x"]
+        for key in a.files:
+            assert a[key].dtype == b[key].dtype, key
+            assert a[key].tobytes() == b[key].tobytes(), key
+        assert b["train_x"].shape[:2] == (3, kw["seq_len"])
+    coords = name == "generate_bouncing_ball_dataset"
+    assert (tmp_path / "port_samples.jpg").exists() is not coords
 
 
 def test_presets_name_the_jax_files():

@@ -42,5 +42,6 @@ def test_scan_sees_the_port():
     names = [os.path.relpath(p, REPO) for p in _port_files()]
     assert "chip_smoke.py" in names
     for path in (("models", "physics_net.py"), ("data", "generators.py"),
-                 ("data", "assets.py"), ("data", "generate.py")):
+                 ("data", "assets.py"), ("data", "generate.py"),
+                 ("train", "watchdog.py"), ("ops", "stn.py")):
         assert os.path.join("paig_reproduction_tpu_torch", *path) in names

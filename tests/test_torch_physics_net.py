@@ -156,9 +156,12 @@ def test_decoder_backends_agree_on_cpu(jax_reference):
 
 @pytest.mark.parametrize("field,value", [("compute_dtype", "bfloat16")])
 def test_unported_extension_fields_raise(field, value):
+    """bf16 is ported now (its parity: tests/test_torch_bf16.py): the value
+    builds, and a dtype the JAX model does not accept raises."""
     PhysicsNet(**KW, **{field: EXTENSION_DEFAULTS[field]})
-    with pytest.raises(NotImplementedError):
-        PhysicsNet(**KW, **{field: value})
+    PhysicsNet(**KW, **{field: value})
+    with pytest.raises(ValueError):
+        PhysicsNet(**KW, **{field: "float16"})
 
 
 def test_extension_defaults_match_jax_fields():
@@ -169,8 +172,11 @@ def test_extension_defaults_match_jax_fields():
 
 @pytest.mark.parametrize("cell", ["lstm"])
 def test_unported_cells_raise(cell):
-    with pytest.raises(NotImplementedError):
-        PhysicsNet(**dict(KW, cell_type=cell))
+    """The LSTM is ported now (its parity: tests/test_torch_lstm.py): it
+    builds, and a cell the JAX package does not have raises."""
+    PhysicsNet(**dict(KW, cell_type=cell))
+    with pytest.raises(ValueError):
+        PhysicsNet(**dict(KW, cell_type=cell + "_ode_cell"))
 
 
 # The other tasks' models (the JAX CLI's task table), each with the model
