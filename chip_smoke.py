@@ -35,7 +35,7 @@ Phases, each printing its elapsed seconds:
 6. checkpoint - the run's model.ckpt restored into a fresh trainer at
                 seq 12: its valid eval and its next train step must equal
                 the finished trainer's within 1e-6 relative;
-7. step       - the median host time of a synchronized train step;
+7. step       - the median host time of a synchronized eager train step;
 8. recipe     - the single-command spring recipe
                 (benchmarks/spring_one5_test_log.txt's flags) through the
                 CLI entry at full width (B=100, the tracked files), its
@@ -62,7 +62,32 @@ Phases, each printing its elapsed seconds:
                 there, and the kernel's launch count must equal the count
                 of every decode (the refinement's included). It prints
                 each task's median train step;
-10. lstm      - the main path's command with the LSTM baseline
+10. graph     - the fused step, captured as a CUDA graph: 10 graphed
+                steps against 10 eager ones from the same weights on
+                spring_color B=100 (parameters within 1e-5 relative; bitwise
+                equality said where it holds), a replayed valid eval epoch
+                against the eager one, then the median graphed and eager
+                step of spring_color, 3bp_color, the LSTM and
+                mnist_spring_color (their logged model flags), one replay
+                and two decoder launches a step, and the main path's matrix
+                FLOPs a step (utils/flops.py) with their rate in the graphed
+                step. Every CLI run of the other phases must log
+                ``fused step: on (captured CUDA graph)`` (the runtime
+                phase's --debug_nans run: off, by name);
+11. native_loader - the main path's command with --native_loader for 2
+                epochs: finite, falling losses, the steps' batches equal to
+                the port's NativeBatcher at the run's seed, every decode
+                counted (the captured step fed through its static batch
+                buffer);
+12. parallel  - DP and TP (--n_model_shards=2) in 2 processes against 1 on
+                the same global batch of spring_color B=100: the losses
+                within 1e-5 relative, the gradients within 1e-4 of the
+                largest (of the split kernels' largest for them). NCCL with
+                2 or more cards; on one card gloo on CUDA tensors (eager)
+                and a 1-process NCCL group through the graphed step, its
+                parameters after 10 steps against eager ones. It prints
+                which ran;
+13. lstm      - the main path's command with the LSTM baseline
                 (``--cell_type=lstm``, 100 units, 1 layer:
                 benchmarks/lstm_proof_log.txt's defaults) for 2 epochs
                 through the CLI entry, with the checkpoint, the seq-30 phase
@@ -70,23 +95,24 @@ Phases, each printing its elapsed seconds:
                 count exact (every rollout decoded in one call), then
                 ``--test_mode`` alone; it prints the median train step and
                 the seq-30 phase's wall time;
-11. bf16      - the same with ``--compute_dtype=bfloat16``: the median step
+14. bf16      - the same with ``--compute_dtype=bfloat16``: the median step
                 beside the float32 one of the ``step`` phase, the UNet's
                 output dtype (a forward hook) and float32 weights and
                 optimizer state, and the card's bf16 positions held to the
                 same model's on the CPU on one batch (BF16_POS_ATOL);
-12. runtime   - ``--watchdog_secs --watchdog_floor_secs --profile_dir
+15. runtime   - ``--watchdog_secs --watchdog_floor_secs --profile_dir
                 --debug_nans`` on a 1-epoch run (a trace file and a stopped
                 watchdog after it); a subprocess whose train step sleeps
                 past a 3 s watchdog must exit with 75; ``--use_ckpt
                 --resume_remaining_epochs --epochs=3`` from the ``train``
                 phase's 2-epoch checkpoint must train exactly 1 epoch
                 (counted in its log.txt);
-13. kernels   - one JSON line with every kernel's launches, error, times,
+16. kernels   - one JSON line with every kernel's launches, error, times,
                 share of its bound and store-only floor, at the main
                 path's N=1000 and at N=2600, the recipe's launches, each
-                task's launches, the LSTM, bf16 and runtime runs' launches
-                and the kernel at the tasks' shapes.
+                task's launches, the LSTM, bf16, runtime and native-loader
+                runs' launches (graph replays included), the kernel at the
+                tasks' shapes and the graph phase's numbers.
 
 With ``--parent OLD/csrc/st_decoder.cu`` (an earlier source of the kernel
 whose C entry, ``st_decode_forward``, takes no ``slots`` argument) the
@@ -193,6 +219,14 @@ TASK_RUNS = {
 # main path's flags.
 LSTM_ARGS = ["--cell_type=lstm", "--recurrent_units=100", "--lstm_layers=1"]
 BF16_ARGS = ["--compute_dtype=bfloat16"]
+GRAPH_CONFIGS = {
+    "spring_color": TRAIN_ARGS,
+    "3bp_color": ["--task=3bp_color", "--device=cuda"]
+    + TASK_RUNS["3bp_color"]["flags"],
+    "lstm": TRAIN_ARGS + LSTM_ARGS,
+    "mnist_spring_color": ["--task=mnist_spring_color", "--device=cuda"]
+    + TASK_RUNS["mnist_spring_color"]["flags"],
+}
 # bf16 positions on the card against the same model's on the CPU: both
 # round their bf16 products once after f32 sums, in orders that may differ,
 # so a value can land one bf16 step away and move a position by thousandths
@@ -202,6 +236,30 @@ BF16_ARGS = ["--compute_dtype=bfloat16"]
 BF16_POS_ATOL = 1e-2
 # The runtime phase's watchdog timeout for the subprocess that hangs.
 HANG_WATCHDOG_SECS = 3
+# The graph phase: graphed parameters after 10 steps against eager ones
+# from the same weights (the same operations, cuDNN deterministic; RMSprop
+# divides by the root of a running mean of squared gradients, so a
+# difference in the last bit of a near-zero gradient moves a parameter
+# far), and the configurations whose graphed and eager steps it times: the
+# main path, the tasks' logged model flags and the LSTM's.
+GRAPH_PARAM_RTOL = 1e-5
+# The parallel phase: the losses of 2 ranks against 1 process's, and the
+# gradients over the largest gradient (of the split kernels' largest for
+# them); the ranks sum partial products and gradients in another order.
+PARALLEL_LOSS_RTOL = 1e-5
+PARALLEL_GRAD_TOL = 1e-4
+# The parallel phase runs the LSTM baseline. At the spring cell's
+# initialization the rollout starts with the objects nearly on top of each
+# other, and the near-collision Jacobians make the encoder's gradient a sum
+# of terms many orders larger than the result that cancel: one process's
+# gradient over a batch differs from the sum of its two halves' by the
+# gradient's own size in float32 and by 1e-3 of it in float64, so no
+# reordered sum can be held to it. The LSTM's is well conditioned (the two
+# agree within 4e-8), and its TP kernels are the cell model's.
+PARALLEL_ARGS = TRAIN_ARGS + LSTM_ARGS
+# What log.txt says of a run's train step on the card: the fused step,
+# captured as a CUDA graph.
+FUSED_ON = "fused step: on (captured CUDA graph)"
 # The tangent's tolerance, relative to its largest value: through the
 # kernel's wrapper the tangent is the plain decode's JVP of the same inputs,
 # so the two differ only where the card's sums run in another order.
@@ -545,6 +603,17 @@ def read_log(path):
     return train, evals, test30
 
 
+def check_fused_line(log_path, expected=FUSED_ON):
+    """log.txt names the train step the run took: ``expected`` (the
+    captured CUDA graph by default)."""
+    with open(log_path) as f:
+        lines = [line.split(" - paig - ", 1)[1].strip() for line in f
+                 if " - paig - fused step: " in line]
+    print(f"log.txt: {lines}")
+    if not lines or not all(line.startswith(expected) for line in lines):
+        raise AssertionError(f"log.txt does not say {expected!r}: {lines}")
+
+
 def eval_batches(n, batch_size):
     """Batches of one eval of a split of n sequences: a split under 100 is
     one batch, a larger one its full batches."""
@@ -623,6 +692,7 @@ def train(batch_size=100, epochs=2, extra=()):
         torch.cuda.synchronize()
         launches = sd.LAUNCHES
 
+    check_fused_line(os.path.join(save_dir, "log.txt"))
     train_losses, eval_losses, test30 = read_log(
         os.path.join(save_dir, "log.txt"))
     print(f"train losses: first {train_losses[0]:.4f}, last "
@@ -813,21 +883,26 @@ def recipe(batch_size=100):
     from paig_reproduction_tpu_torch.data.iterators import gather_batch
     from paig_reproduction_tpu_torch.models import physics_net
     from paig_reproduction_tpu_torch.ops.cuda import st_decoder as sd
+    from paig_reproduction_tpu_torch.train import graphs
 
     save_dir = os.path.join(tempfile.mkdtemp(prefix="paig_recipe_"), "run")
     argv = RECIPE_ARGS + [f"--batch_size={batch_size}",
                           f"--data_dir={DATA_DIR}", f"--save_dir={save_dir}"]
     refine = physics_net.refine_positions
-    refine_launches = 0
+    # The refinement's launches, replays of captured eval batches included
+    # (a replay advances every counter of graphs.COUNTERS as its capture
+    # saw it advance).
+    refine_count = {"n": 0}
 
     def counted_refine(*args, **kwargs):
-        nonlocal refine_launches
         before = sd.LAUNCHES
         out = refine(*args, **kwargs)
-        refine_launches += sd.LAUNCHES - before
+        refine_count["n"] += sd.LAUNCHES - before
         return out
 
     physics_net.refine_positions = counted_refine
+    graphs.COUNTERS["refine"] = (lambda: refine_count["n"],
+                                 lambda v: refine_count.update(n=v))
     try:
         with cli_run():
             sd.LAUNCHES = 0
@@ -838,6 +913,9 @@ def recipe(batch_size=100):
             launches = sd.LAUNCHES
     finally:
         physics_net.refine_positions = refine
+        del graphs.COUNTERS["refine"]
+    refine_launches = refine_count["n"]
+    check_fused_line(os.path.join(save_dir, "log.txt"))
 
     log_path = os.path.join(save_dir, "log.txt")
     with open(log_path) as f:
@@ -969,8 +1047,9 @@ def check_bf16(trainer, n=10):
 
 def hang_under_watchdog(argv):
     """The CLI entry with `argv` for 1 epoch, no pre-train eval and a
-    HANG_WATCHDOG_SECS watchdog, in a subprocess whose train step sleeps 120
-    s. Returns (its exit code, the watchdog's log lines, its seconds)."""
+    HANG_WATCHDOG_SECS watchdog, in a subprocess whose train step (eager or
+    a fused chunk) sleeps 120 s. Returns (its exit code, the watchdog's log
+    lines, its seconds)."""
     argv = list(argv) + ["--epochs=1", "--debug",
                          f"--watchdog_secs={HANG_WATCHDOG_SECS}"]
     code = ("import sys, time\n"
@@ -978,6 +1057,7 @@ def hang_under_watchdog(argv):
             "from paig_reproduction_tpu_torch import cli\n"
             "from paig_reproduction_tpu_torch.train.trainer import Trainer\n"
             "Trainer.train_step = lambda self, idx: time.sleep(120)\n"
+            "Trainer.train_chunk = lambda self, b, k: time.sleep(120)\n"
             f"cli.main({argv!r})\n")
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -1012,6 +1092,8 @@ def runtime(train_dir, batch_size=100):
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = sd.LAUNCHES
+    check_fused_line(os.path.join(base, "flags", "log.txt"),
+                     "fused step: off (--debug_nans")
     traces = glob.glob(os.path.join(prof_dir, "*.pt.trace.json"))
     if len(traces) != 1 or not os.path.getsize(traces[0]):
         raise AssertionError(f"--profile_dir wrote {traces}")
@@ -1072,6 +1154,439 @@ def runtime(train_dir, batch_size=100):
                              "kernel on every decode")
     return dict(launches=launches, resume_launches=resume_launches,
                 seconds=seconds, hang_seconds=hang_s)
+
+
+@contextmanager
+def fused_env(value):
+    """PAIG_FUSED set to `value` (None: unset) inside the block."""
+    old = os.environ.get("PAIG_FUSED")
+    if value is None:
+        os.environ.pop("PAIG_FUSED", None)
+    else:
+        os.environ["PAIG_FUSED"] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("PAIG_FUSED", None)
+        else:
+            os.environ["PAIG_FUSED"] = old
+
+
+def make_trainer(argv, data_dir, batch_size=100):
+    """A Trainer on the card with the model and optimizer that the CLI
+    builds from `argv` (weights from its --seed) and the task's train-length
+    file under `data_dir`, without the CLI's run."""
+    from paig_reproduction_tpu_torch import cli
+    from paig_reproduction_tpu_torch.data.iterators import get_iterators
+    from paig_reproduction_tpu_torch.train.trainer import Trainer
+
+    args = cli.build_parser().parse_args(argv)
+    entry = cli.TASK_TABLE[args.task]
+    trainer = Trainer(cli.build_model(args, entry[3]), device="cuda",
+                      seed=args.seed,
+                      enhancers_eval_only=args.enhancers_eval_only)
+    trainer.get_data(get_iterators(os.path.join(data_dir, entry[0]),
+                                   conv=True))
+    trainer.build_optimizer(
+        args.base_lr, args.optimizer, args.anneal_lr, epochs=args.epochs,
+        steps_per_epoch=trainer.train_iterator.num_examples // batch_size,
+        physics_lr_mult=args.physics_lr_mult, grad_clip=args.grad_clip,
+        aux_warmup_epochs=args.aux_warmup_epochs, bg_lr_mult=args.bg_lr_mult)
+    return trainer
+
+
+def feed_indices(trainer, idxs):
+    """The trainer's next chunks draw their index batches from `idxs`
+    instead of its train iterator (until `release`d)."""
+    import numpy as np
+    rows = iter(list(idxs))
+
+    def next_batches(batch_size, max_k):
+        return np.stack([r for _, r in zip(range(max_k), rows)])
+
+    trainer.train_iterator.next_index_batches = next_batches
+
+
+def release(trainer):
+    del trainer.train_iterator.next_index_batches
+
+
+def rel_diff(a, b):
+    """max |a - b| / max |b| over tensors of the same shape."""
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def graph_vs_eager(argv, data_dir, steps=10, batch_size=100):
+    """`steps` graphed steps (one chunk: the warm-up step, the capture,
+    then replays) against as many eager steps on the same index batches
+    from the same weights, cuDNN deterministic; then one valid eval epoch
+    replayed against the eager one. Returns (the parameters' largest
+    relative difference, whether they are bitwise equal, the eval losses'
+    largest relative difference)."""
+    import numpy as np
+    import torch
+
+    eager = make_trainer(argv, data_dir, batch_size)
+    graphed = make_trainer(argv, data_dir, batch_size)
+    graphed.model.load_state_dict(eager.model.state_dict())
+    n = eager.train_iterator.num_examples
+    rs = np.random.RandomState(0)
+    idxs = np.stack([rs.choice(n, batch_size, replace=False)
+                     for _ in range(steps)])
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with fused_env("0"):
+            for idx in idxs:
+                eager.train_step(idx)
+        with fused_env(None):
+            if graphed.fused_off_reason(batch_size) is not None:
+                raise AssertionError("the fused step is off on the card: "
+                                     + graphed.fused_off_reason(batch_size))
+            feed_indices(graphed, idxs)
+            done, _ = graphed.train_chunk(batch_size, steps)
+            release(graphed)
+        torch.cuda.synchronize()
+        pairs = list(zip(graphed.model.parameters(),
+                         eager.model.parameters()))
+        worst = max(rel_diff(p, q) for p, q in pairs)
+        bitwise = all(torch.equal(p, q) for p, q in pairs)
+        evals = []
+        for t, env in ((eager, "0"), (graphed, None)):
+            t.valid_iterator.indices = np.arange(
+                t.valid_iterator.num_examples)
+            np.random.seed(0)
+            with fused_env(env):
+                evals.append(torch.from_numpy(
+                    t._eval_losses("valid", batch_size)[0]))
+        eval_rel = rel_diff(evals[1], evals[0])
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    print(f"{done} graphed steps against {steps} eager ones from the same "
+          f"weights: parameters' largest relative difference {worst:.3e}"
+          f"{' (bitwise equal)' if bitwise else ''} (tolerance "
+          f"{GRAPH_PARAM_RTOL}); graphs {graphed.graph_stats()}; valid eval "
+          f"epoch replayed against eager: {eval_rel:.3e}")
+    if not (done == steps and worst <= GRAPH_PARAM_RTOL
+            and eval_rel <= GRAPH_PARAM_RTOL):
+        raise AssertionError("the graphed step or eval disagrees with the "
+                             "eager one")
+    return worst, bitwise, eval_rel
+
+
+def graphed_step_ms(trainer, batch_size=100, steps=10, runs=5):
+    """Median time of a graphed step (ms): runs of `steps` steps in one
+    chunk each, timed on the host around the chunk and a synchronize, after
+    a warm-up chunk that captures. Returns (ms, replays a step, decoder
+    launches a step)."""
+    import numpy as np
+    import torch
+    from paig_reproduction_tpu_torch.ops.cuda import st_decoder as sd
+
+    n = trainer.train_iterator.num_examples
+    rs = np.random.RandomState(1)
+    times = []
+    for run in range(runs + 1):
+        feed_indices(trainer, [rs.choice(n, batch_size, replace=False)
+                               for _ in range(steps)])
+        replays0 = sum(r for r, _ in trainer.graph_stats().values())
+        launches0 = sd.LAUNCHES
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train_chunk(batch_size, steps)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) * 1e3 / steps
+        release(trainer)
+        if run:
+            times.append(dt)
+    replays = sum(r for r, _ in trainer.graph_stats().values()) - replays0
+    return statistics.median(times), replays / steps, \
+        (sd.LAUNCHES - launches0) / steps
+
+
+def graph(eager_spring_ms, batch_size=100):
+    """The graph phase: graphed against eager on spring_color (parameters
+    after 10 steps, an eval epoch), then each configuration's median
+    graphed and eager step, replays and launches counted, and the main
+    path's matrix FLOPs a step and their rate in the graphed step."""
+    from paig_reproduction_tpu_torch.utils.flops import step_flops
+
+    spring = GRAPH_CONFIGS["spring_color"]
+    worst, bitwise, eval_rel = graph_vs_eager(spring, DATA_DIR,
+                                              batch_size=batch_size)
+    steps = {}
+    for name, argv in GRAPH_CONFIGS.items():
+        task = argv[0].split("=")[1]
+        data_dir = (generated_dir(task) if TASK_RUNS.get(task, {}).get(
+            "generate") else DATA_DIR)
+        trainer = make_trainer(argv, data_dir, batch_size)
+        with fused_env(None):
+            ms, replays, launches = graphed_step_ms(trainer, batch_size)
+        if replays != 1 or launches != 2:
+            raise AssertionError(f"{name}: {replays} replays and {launches} "
+                                 f"decoder launches a graphed step, "
+                                 f"expected 1 and 2")
+        eager = (eager_spring_ms if name == "spring_color"
+                 else step_ms(trainer, batch_size))
+        steps[name] = dict(graphed_ms=ms, eager_ms=eager,
+                           replays_per_step=replays,
+                           launches_per_step=launches)
+        print(f"{name}: graphed step {ms:.3f} ms, eager {eager:.3f} ms "
+              f"(x{eager / ms:.2f}); {replays:.0f} replay and "
+              f"{launches:.0f} decoder launches a step")
+        if name == "spring_color":
+            flops = step_flops(trainer.model, batch_size)
+            steps[name]["flops"] = flops
+            print(f"spring_color matrix FLOPs a step (utils/flops.py): "
+                  f"{flops}; {flops / ms / 1e9:.3f} TFLOP/s in the graphed "
+                  f"step")
+        del trainer
+    return dict(param_rel=worst, bitwise=bitwise, eval_rel=eval_rel,
+                steps=steps)
+
+
+def native_loader(batch_size=100, epochs=2):
+    """The main path's command with --native_loader through the CLI entry:
+    finite, falling losses; the steps' batches equal the port's loader's at
+    the run's seed; every decode counted, replays included. Returns the
+    phase's numbers."""
+    import torch
+    from paig_reproduction_tpu_torch import cli
+    from paig_reproduction_tpu_torch.data import native
+    from paig_reproduction_tpu_torch.ops.cuda import st_decoder as sd
+
+    save_dir = os.path.join(tempfile.mkdtemp(prefix="paig_native_"), "run")
+    argv = TRAIN_ARGS + [f"--batch_size={batch_size}", f"--epochs={epochs}",
+                         f"--data_dir={DATA_DIR}", f"--save_dir={save_dir}",
+                         "--native_loader"]
+    seen = []
+    into = native.NativeBatcher.next_batch_into
+
+    def recorded(self, dst, rows=slice(None)):
+        into(self, dst, rows)
+        seen.append(dst.clone())
+
+    native.NativeBatcher.next_batch_into = recorded
+    try:
+        with cli_run():
+            sd.LAUNCHES = 0
+            t0 = time.perf_counter()
+            trainer, test_trainer = cli.main(argv)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = sd.LAUNCHES
+    finally:
+        native.NativeBatcher.next_batch_into = into
+    log_path = os.path.join(save_dir, "log.txt")
+    check_fused_line(log_path, "fused step: off (--native_loader")
+    train_losses, eval_losses, _ = read_log(log_path)
+    if not all(math.isfinite(v) for v in train_losses + eval_losses):
+        raise AssertionError("a logged loss of the native run is not finite")
+    if not train_losses[-1] < train_losses[0]:
+        raise AssertionError("the native run's last train_loss is not below "
+                             "the first")
+    ref = native.NativeBatcher(trainer.train_iterator.raw_uint8, batch_size,
+                               seed=trainer.seed)
+    same = all(torch.equal(b.cpu(), torch.from_numpy(ref.next_batch_x()))
+               for b in seen)
+    ref.close()
+    needed = expected_launches(
+        trainer.step, trainer.valid_iterator.num_examples,
+        trainer.test_iterator.num_examples,
+        test_trainer.test_iterator.num_examples, batch_size, epochs)
+    print(f"--native_loader: {seconds:.3f} s wall, {trainer.step} steps, "
+          f"train losses {train_losses[0]:.4f} -> {train_losses[-1]:.4f}; "
+          f"{len(seen)} batches equal to NativeBatcher(seed="
+          f"{trainer.seed})'s: {same}; st_decode launches {launches} "
+          f"(expected {needed})")
+    if not same or len(seen) != trainer.step:
+        raise AssertionError("the steps' batches are not the loader's")
+    if launches != needed:
+        raise AssertionError("the native run did not decode through the "
+                             "kernel on every decode")
+    return dict(launches=launches, seconds=seconds)
+
+
+# One process of the parallel phase (PARALLEL_ARGS at B=100 on the tracked
+# file, weights from seed 0), rank 0 saving to $OUT. MODE=grads: the losses
+# and gradients of one forward and backward on its rows of a global batch,
+# every split tensor made whole. MODE=steps: 10 train steps as the trainer
+# runs them (graphed where its predicate admits it) and the whole
+# parameters after them.
+PARALLEL_WORKER = r"""
+import os, sys
+import numpy as np
+import torch
+sys.path.insert(0, os.environ["PAIG_REPO"])
+from paig_reproduction_tpu_torch import cli
+from paig_reproduction_tpu_torch.data.iterators import gather_batch
+from paig_reproduction_tpu_torch.data.iterators import get_iterators
+from paig_reproduction_tpu_torch.parallel.distributed import init_distributed
+from paig_reproduction_tpu_torch.parallel.mesh import make_mesh
+from paig_reproduction_tpu_torch.train.trainer import Trainer
+from paig_reproduction_tpu_torch.utils.misc import use_full_f32
+
+use_full_f32()
+torch.backends.cudnn.deterministic = True
+args = cli.build_parser().parse_args(sys.argv[1:])
+B = int(os.environ.get("BATCH", "100"))
+grads_mode = os.environ["MODE"] == "grads"
+pid = init_distributed(device=args.device,
+                       backend=os.environ.get("BACKEND") or None)
+m = make_mesh(int(os.environ["N_MODEL"]))
+t = Trainer(cli.build_model(args, 12), device=args.device, mesh=m)
+t.get_data(get_iterators(os.path.join(
+    args.data_dir, cli.TASK_TABLE[args.task][0]), conv=True))
+t.build_optimizer(args.base_lr)
+rs = np.random.RandomState(0)
+n = t.train_iterator.num_examples
+idxs = np.stack([rs.choice(n, B, replace=False) for _ in range(11)])
+out = {"split": np.array(sorted(t._split))}
+reason = t.fused_off_reason(B)
+if grads_mode:
+    t._fill_scalars(0)
+    batch = gather_batch(t._split_u8("train"), idxs[0][m.rows(B)])
+    out["losses"] = t._forward_backward(batch).cpu().numpy()
+    out.update({"g/" + k: t._whole(k, p.grad).cpu().numpy()
+                for k, p in t.model.named_parameters() if p.grad is not None})
+else:
+    if reason is None:
+        rows = iter(idxs[1:])
+        t.train_iterator.next_index_batches = lambda b, k: np.stack(
+            [next(rows) for _ in range(k)])
+        k, losses = t.train_chunk(B, 10)
+        out["losses"] = losses[-1].cpu().numpy()
+    else:
+        for idx in idxs[1:]:
+            losses = t.train_step(idx)
+        out["losses"] = torch.stack(list(losses.values())).cpu().numpy()
+    out["graphs"] = np.array(len(t._graphs))
+    out.update({"p/" + k: t._whole(k, p.detach()).cpu().numpy()
+                for k, p in t.model.named_parameters()})
+if pid == 0:
+    np.savez(os.environ["OUT"], **out)
+print("rank", pid, os.environ["MODE"], "fused step:",
+      "on" if reason is None else f"off ({reason})",
+      "graphs", t.graph_stats(), flush=True)
+"""
+
+
+def parallel_errors(ref, got):
+    """How far a parallel run's results `got` are from one process's `ref`
+    (dicts of the worker's arrays): the losses' largest relative
+    difference; with gradients, their largest difference over the largest
+    gradient and the same over the split kernels alone (None without);
+    with parameters, their largest difference relative to each tensor's
+    largest value."""
+    import numpy as np
+    out = {"loss_rel": float(np.max(np.abs(got["losses"] - ref["losses"])
+                                    / np.abs(ref["losses"])))}
+    for prefix in ("g/", "p/"):
+        names = [k for k in ref if k.startswith(prefix)]
+        if sorted(names) != sorted(k for k in got if k.startswith(prefix)):
+            raise AssertionError("the runs have different parameters")
+    grads = [k for k in ref if k.startswith("g/")]
+    if grads:
+        def over_largest(names):
+            largest = max(np.abs(ref[k]).max() for k in names)
+            return float(max(np.abs(got[k] - ref[k]).max() for k in names)
+                         / largest)
+        split = ["g/" + k for k in got["split"]]
+        out["grad"] = over_largest(grads)
+        out["split_grad"] = over_largest(split) if split else None
+    params = [k for k in ref if k.startswith("p/")]
+    if params:
+        out["param_rel"] = max(float(np.abs(got[k] - ref[k]).max()
+                                     / max(np.abs(ref[k]).max(), 1e-30))
+                               for k in params)
+    return out
+
+
+def run_ranks(mode, n, n_model, out, backend=None, fused=None):
+    """PARALLEL_WORKER in MODE `mode` in `n` processes (without the PAIG_*
+    variables when `n` is 0: one process outside any group). Returns their
+    outputs."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    procs = []
+    for rank in range(max(n, 1)):
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("PAIG_COORDINATOR", "PAIG_NUM_PROCESSES",
+                            "PAIG_PROCESS_ID", "PAIG_FUSED")}
+        env.update(PAIG_REPO=REPO, OUT=out, N_MODEL=str(n_model),
+                   BACKEND=backend or "", MODE=mode)
+        if fused is not None:
+            env["PAIG_FUSED"] = fused
+        if n:
+            env.update(PAIG_COORDINATOR=f"localhost:{port}",
+                       PAIG_NUM_PROCESSES=str(n), PAIG_PROCESS_ID=str(rank))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", PARALLEL_WORKER, *PARALLEL_ARGS,
+             f"--data_dir={DATA_DIR}"], env=env, cwd=REPO,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    atexit.register(lambda: [p.kill() for p in procs if p.poll() is None])
+    logs = [p.communicate(timeout=300)[0] for p in procs]
+    for p, log in zip(procs, logs):
+        if p.returncode:
+            raise RuntimeError(f"a parallel worker failed:\n{log[-4000:]}")
+    return [line for log in logs for line in log.splitlines()
+            if line.startswith("rank ")]
+
+
+def parallel():
+    """DP and TP (--n_model_shards=2) in 2 processes against 1 process on
+    the same global batch: NCCL with a card each where there are 2 or
+    more; on one card, gloo on CUDA tensors (eager: gloo's collectives
+    cannot be captured), and a 1-process NCCL group through the graphed
+    step. It runs the LSTM baseline (PARALLEL_ARGS), whose TP kernels are
+    the cell model's. Returns    the phase's numbers."""
+    import numpy as np
+    import torch
+
+    base = tempfile.mkdtemp(prefix="paig_parallel_")
+
+    def path(name):
+        return os.path.join(base, name + ".npz")
+
+    def load(name):
+        return dict(np.load(path(name)))
+
+    cards = torch.cuda.device_count()
+    backend = "nccl" if cards >= 2 else "gloo"
+    print(f"{cards} card(s): 2 ranks over {backend}")
+    print(run_ranks("grads", 0, 1, path("one")))
+    ref = load("one")
+    results = {"backend": backend, "cards": cards}
+    for name, n_model in (("dp", 1), ("tp", 2)):
+        print(run_ranks("grads", 2, n_model, path(name), backend=backend))
+        got = load(name)
+        errors = parallel_errors(ref, got)
+        results[name] = errors
+        print(f"{name}, 2 {backend} ranks against 1 process: "
+              f"{errors}; split: {list(got['split'])}")
+        if not (errors["loss_rel"] <= PARALLEL_LOSS_RTOL
+                and errors["grad"] <= PARALLEL_GRAD_TOL
+                and (errors["split_grad"] or 0.0) <= PARALLEL_GRAD_TOL):
+            raise AssertionError(f"{name} disagrees with one process")
+        if n_model == 2 and not len(got["split"]):
+            raise AssertionError("TP split no kernel")
+    if cards < 2:
+        print(run_ranks("steps", 0, 1, path("one_steps"), fused="0"))
+        print(run_ranks("steps", 1, 1, path("nccl1"), backend="nccl"))
+        got = load("nccl1")
+        errors = parallel_errors(load("one_steps"), got)
+        results["nccl_1_rank_graphed"] = errors
+        print(f"1-rank NCCL group, graphed, against 1 process eager "
+              f"(10 steps): {errors}; {int(got['graphs'])} "
+              f"graph(s)")
+        if not (int(got["graphs"]) >= 1
+                and errors["param_rel"] <= GRAPH_PARAM_RTOL
+                and errors["loss_rel"] <= PARALLEL_LOSS_RTOL):
+            raise AssertionError("the graphed 1-rank NCCL step disagrees")
+    return results
 
 
 def generated_dir(task):
@@ -1166,6 +1681,7 @@ def run_task(task, data_dir, batch_size=100):
         launches = sd.LAUNCHES
 
     log_path = os.path.join(save_dir, "log.txt")
+    check_fused_line(log_path)
     train_losses, eval_losses, test_long = read_log(log_path)
     print(f"{task}: train losses first {train_losses[0]:.4f}, last "
           f"{train_losses[-1]:.4f} over {len(train_losses)} steps; seq-"
@@ -1285,6 +1801,20 @@ def main(argv=None):
             f"{t} step {r['step_ms']:.2f} ms, {r['launches']} launches"
             for t, r in tasks.items()))
 
+    with phase("graph"):
+        gr = graph(ms)
+        print(f"graph on {smi}: " + "; ".join(
+            f"{k} graphed {v['graphed_ms']:.3f} ms, eager "
+            f"{v['eager_ms']:.3f} ms" for k, v in gr["steps"].items()))
+
+    with phase("native_loader"):
+        nat = native_loader()
+
+    with phase("parallel"):
+        par = parallel()
+        print(f"parallel on {smi}: {par['cards']} card(s), 2 ranks over "
+              f"{par['backend']}; speed across cards is not measured here")
+
     with phase("lstm"):
         lstm, _ = variant(LSTM_ARGS)
         print(f"lstm on {smi}: median train step {lstm['step_ms']:.2f} ms "
@@ -1330,6 +1860,10 @@ def main(argv=None):
             "lstm_launches": lstm["launches"],
             "bf16_launches": bf16["launches"],
             "runtime_launches": rt["launches"],
+            "native_loader_launches": nat["launches"],
+            "graph": {"param_rel": gr["param_rel"],
+                      "bitwise": gr["bitwise"], "eval_rel": gr["eval_rel"],
+                      "steps": gr["steps"]},
             "task_shapes": [dict(
                 zip(("n", "img", "tmpl", "objects", "ch"), shape),
                 **{k: timings[shape][k] for k in (

@@ -1,10 +1,15 @@
 """CLI entry point of the PyTorch/CUDA port.
 
 ``build_parser`` has the same flags, defaults and choices as
-``paig_reproduction_tpu/cli.py``'s, plus ``--device``. A flag whose feature
-is not ported yet (``UNSUPPORTED_FLAGS``) raises ``NotImplementedError``
-when it is given a value other than its default. Dataset files come from
-``TASK_TABLE`` under ``--data_dir``.
+``paig_reproduction_tpu/cli.py``'s, plus ``--device``. Every flag is
+ported. Dataset files come from ``TASK_TABLE`` under ``--data_dir``.
+
+Several processes (one a card) join one run as the JAX CLI's do, through
+``PAIG_COORDINATOR``/``PAIG_NUM_PROCESSES``/``PAIG_PROCESS_ID``
+(``parallel/distributed.py``); ``--n_model_shards`` processes hold one copy
+of the model with its TP kernels split (``parallel/mesh.py``).
+``--native_loader`` feeds the train step from the C++ loader
+(``data/native.py``).
 
 A run trains (unless ``--test_mode``), saving ``model.ckpt`` in
 ``--save_dir``, with the single-command recipes as the JAX CLI wires them:
@@ -344,16 +349,46 @@ TASK_TABLE = {
 }
 
 
-# Flags of trainer features not ported yet (multi-device training and the
-# native loader); each must keep its default.
-UNSUPPORTED_FLAGS = ("n_model_shards", "native_loader")
-
-
 def epochs_to_train(epochs, epochs_done, resume_remaining):
     """The epochs a run trains: ``--epochs``, or with
     ``--resume_remaining_epochs`` what the checkpoint chain's
     ``epochs_done`` leaves of them, at least one (as the JAX CLI counts)."""
     return max(1, epochs - epochs_done) if resume_remaining else epochs
+
+
+def build_model(args, seq_len):
+    """The model of the parsed flags ``args`` for ``args.task`` at sequence
+    length ``seq_len``, its weights drawn from ``--seed``."""
+    import torch
+
+    from paig_reproduction_tpu_torch.models.registry import get_model
+    (_, _, cell_type, _, _, input_steps, pred_steps,
+     input_size) = TASK_TABLE[args.task]
+    return get_model(args.model)(
+        task=args.task, recurrent_units=args.recurrent_units,
+        lstm_layers=args.lstm_layers,
+        cell_type=args.cell_type if args.cell_type else cell_type,
+        seq_len=seq_len, input_steps=input_steps, pred_steps=pred_steps,
+        autoencoder_loss=args.autoencoder_loss, alt_vel=args.alt_vel,
+        color=args.color, input_size=input_size,
+        encoder_type=args.encoder_type, decoder_type=args.decoder_type,
+        decoder_backend=args.decoder_backend,
+        cell_substeps=args.cell_substeps,
+        generator=torch.Generator().manual_seed(args.seed),
+        template_center_loss=args.template_center_loss,
+        coarse_loss=args.coarse_loss, vel_anchor=args.vel_anchor,
+        pos_consistency=args.pos_consistency,
+        learn_frame_offset=args.learn_frame_offset,
+        recons_warmup=args.recons_warmup,
+        init_state_fit=args.init_state_fit,
+        refine_enc_pos=args.refine_enc_pos,
+        refine_recons_pos=args.refine_recons_pos,
+        attn_overlap_loss=args.attn_overlap_loss,
+        active_slots=args.active_slots,
+        slot_gate_soft=args.slot_gate_soft,
+        template_init=args.template_init,
+        reference_quirks=args.reference_quirks,
+        compute_dtype=args.compute_dtype)
 
 
 def main(argv=None):
@@ -362,9 +397,6 @@ def main(argv=None):
     ``--test_mode``) and the seq-``test_seq_len`` test phase's."""
     parser = build_parser()
     args = parser.parse_args(argv)
-    for name in UNSUPPORTED_FLAGS:
-        if getattr(args, name) != parser.get_default(name):
-            raise NotImplementedError(f"--{name} is not ported yet")
 
     logger = logging.getLogger("paig")
     logger.setLevel(logging.DEBUG)
@@ -375,18 +407,25 @@ def main(argv=None):
     logger.addHandler(ch)
 
     import numpy as np
-    import torch
 
     # --seed seeds the weights and the global numpy RNG that drives
     # dataset shuffling.
     np.random.seed(args.seed)
 
     from paig_reproduction_tpu_torch.data.iterators import get_iterators
-    from paig_reproduction_tpu_torch.models.registry import get_model
+    from paig_reproduction_tpu_torch.parallel.distributed import (
+        init_distributed,
+    )
+    from paig_reproduction_tpu_torch.parallel.mesh import make_mesh
     from paig_reproduction_tpu_torch.train.trainer import Trainer
 
-    (data_file, test_data_file, cell_type, seq_len, test_seq_len,
-     input_steps, pred_steps, input_size) = TASK_TABLE[args.task]
+    # Several processes: joins their group when PAIG_COORDINATOR /
+    # PAIG_NUM_PROCESSES / PAIG_PROCESS_ID are set (no-op otherwise).
+    init_distributed(device=args.device)
+    mesh = make_mesh(n_model=args.n_model_shards)
+
+    data_file, test_data_file, _, seq_len, test_seq_len = \
+        TASK_TABLE[args.task][:5]
     data_root = args.data_dir or os.path.join(
         os.path.dirname(os.path.dirname(os.path.realpath(__file__))),
         "data", "datasets")
@@ -396,41 +435,16 @@ def main(argv=None):
         t.watchdog_floor_secs = args.watchdog_floor_secs
         t.debug_nans = args.debug_nans
 
-    def build(seq):
-        return get_model(args.model)(
-            task=args.task, recurrent_units=args.recurrent_units,
-            lstm_layers=args.lstm_layers,
-            cell_type=args.cell_type if args.cell_type else cell_type,
-            seq_len=seq, input_steps=input_steps, pred_steps=pred_steps,
-            autoencoder_loss=args.autoencoder_loss, alt_vel=args.alt_vel,
-            color=args.color, input_size=input_size,
-            encoder_type=args.encoder_type, decoder_type=args.decoder_type,
-            decoder_backend=args.decoder_backend,
-            cell_substeps=args.cell_substeps,
-            generator=torch.Generator().manual_seed(args.seed),
-            template_center_loss=args.template_center_loss,
-            coarse_loss=args.coarse_loss, vel_anchor=args.vel_anchor,
-            pos_consistency=args.pos_consistency,
-            learn_frame_offset=args.learn_frame_offset,
-            recons_warmup=args.recons_warmup,
-            init_state_fit=args.init_state_fit,
-            refine_enc_pos=args.refine_enc_pos,
-            refine_recons_pos=args.refine_recons_pos,
-            attn_overlap_loss=args.attn_overlap_loss,
-            active_slots=args.active_slots,
-            slot_gate_soft=args.slot_gate_soft,
-            template_init=args.template_init,
-            reference_quirks=args.reference_quirks,
-            compute_dtype=args.compute_dtype)
-
     trainer = None
     if not args.test_mode:
         data_iterators = get_iterators(os.path.join(data_root, data_file),
                                        conv=True,
                                        datapoints=args.datapoints)
-        trainer = Trainer(build(seq_len), device=args.device, seed=args.seed,
+        trainer = Trainer(build_model(args, seq_len), device=args.device,
+                          seed=args.seed,
                           enhancers_eval_only=args.enhancers_eval_only,
-                          profile_dir=args.profile_dir)
+                          profile_dir=args.profile_dir,
+                          native_loader=args.native_loader, mesh=mesh)
         runtime_flags(trainer)
         trainer.get_data(data_iterators)
         steps_per_epoch = max(
@@ -480,7 +494,8 @@ def main(argv=None):
     # routes the restore only under --test_mode.
     data_iterators = get_iterators(os.path.join(data_root, test_data_file),
                                    conv=True, datapoints=args.datapoints)
-    test_trainer = Trainer(build(test_seq_len), device=args.device)
+    test_trainer = Trainer(build_model(args, test_seq_len), device=args.device,
+                           mesh=mesh)
     runtime_flags(test_trainer)
     test_trainer.get_data(data_iterators)
     test_trainer.build_optimizer(args.base_lr, args.optimizer,

@@ -126,6 +126,10 @@ def to_device(raw_uint8: np.ndarray, device) -> torch.Tensor:
 
 
 def gather_batch(data_u8: torch.Tensor, idx) -> torch.Tensor:
-    """float32 batch data_u8[idx] / 255, gathered on data_u8's device."""
-    idx = torch.as_tensor(np.asarray(idx, np.int64), device=data_u8.device)
+    """float32 batch data_u8[idx] / 255, gathered on data_u8's device.
+    ``idx`` is host indices, or an int64 tensor on that device (a captured
+    step's static index buffer: nothing crosses from the host)."""
+    if not torch.is_tensor(idx):
+        idx = torch.as_tensor(np.ascontiguousarray(idx, np.int64),
+                              device=data_u8.device)
     return data_u8[idx].to(torch.float32) / 255.0

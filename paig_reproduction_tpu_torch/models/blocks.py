@@ -42,7 +42,11 @@ def _fan_in_uniform_(module: nn.Module, fan_in: int,
 
 class TorchDense(nn.Linear):
     """``nn.Linear`` with its kernel and bias drawn from ``generator``,
-    computing in ``dtype`` (see the module docstring)."""
+    computing in ``dtype`` (see the module docstring). Under tensor
+    parallelism (``parallel/mesh.py``, ``shard_model``) ``tp_forward``
+    computes the layer from this process's slice of its kernel."""
+
+    tp_forward = None
 
     def __init__(self, in_features: int, out_features: int,
                  generator: Optional[torch.Generator] = None,
@@ -52,6 +56,8 @@ class TorchDense(nn.Linear):
         self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp_forward is not None:
+            return self.tp_forward(self, x)
         dt = self.compute_dtype
         if dt is None:
             return super().forward(x)

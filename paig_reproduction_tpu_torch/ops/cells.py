@@ -144,8 +144,9 @@ def bouncing_step(params: CellParams, pos: torch.Tensor, vel: torch.Tensor,
 @functools.lru_cache(maxsize=64)
 def _constant(value: float, dtype, device) -> torch.Tensor:
     """A 0-dim tensor of `value`, made once per dtype and device (making it
-    per call would copy it from the host each time)."""
-    return torch.tensor(value, dtype=dtype, device=device)
+    per call would copy it from the host each time). ``torch.full`` fills
+    it on the device, inside ``torch.func`` transforms too."""
+    return torch.full((), value, dtype=dtype, device=device)
 
 
 def _clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:

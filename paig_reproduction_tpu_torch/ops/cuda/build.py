@@ -1,10 +1,14 @@
-"""Builds the port's CUDA sources (``csrc/*.cu``) into shared libraries.
+"""Builds the port's native sources into shared libraries.
 
-Each source is compiled by ``nvcc`` for Hopper (``sm_90a``) into a library
-with a plain C interface, loaded with ``ctypes``. Libraries go into
+Each CUDA source (``csrc/*.cu``) is compiled by ``nvcc`` for Hopper
+(``sm_90a``), each host C++ source (``csrc/*.cpp``, the native data loader)
+by ``g++ -O3 -fPIC -shared -std=c++17 -pthread``, into a library with a
+plain C interface, loaded with ``ctypes``. Libraries go into
 ``paig_reproduction_tpu_torch/_build/``, named by a hash of the source and
 the flags, so an edited source is rebuilt at its next use. Nothing is
-compiled when a module is imported: the first launch builds what it needs.
+compiled when a module is imported: the first use builds what it needs.
+This hashed directory is also what the JAX package's persistent compile
+cache (``utils/cache.py``) is to it: the port compiles nothing else.
 """
 from __future__ import annotations
 
@@ -21,6 +25,8 @@ CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+GXX_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17", "-pthread")
 
 _loaded: dict = {}
 
@@ -43,9 +49,10 @@ def sources() -> list:
     return sorted(f[:-3] for f in os.listdir(CSRC_DIR) if f.endswith(".cu"))
 
 
-def library_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+def library_path(name: str, ext: str = ".cu") -> str:
+    flags = NVCC_FLAGS if ext == ".cu" else GXX_FLAGS
+    with open(os.path.join(CSRC_DIR, name + ext), "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(flags).encode())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 
@@ -89,3 +96,27 @@ def load(name: str) -> ctypes.CDLL:
             build([name])
         _loaded[name] = ctypes.CDLL(path)
     return _loaded[name]
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The library built from the host C++ source ``csrc/<name>.cpp``,
+    compiled with ``g++`` (``$CXX`` overrides) first if no build of the
+    current source exists. Raises if the compiler is missing or fails."""
+    key = name + ".cpp"
+    if key not in _loaded:
+        path = library_path(name, ".cpp")
+        if not os.path.exists(path):
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            cxx = os.environ.get("CXX", "g++")
+            tmp = f"{path}.{os.getpid()}.tmp"
+            try:
+                proc = subprocess.run(
+                    [cxx, *GXX_FLAGS, os.path.join(CSRC_DIR, key), "-o", tmp],
+                    capture_output=True, text=True)
+            except OSError as e:
+                raise RuntimeError(f"{cxx} not found for {key}: {e}") from e
+            if proc.returncode:
+                raise RuntimeError(f"{cxx} failed for {key}:\n{proc.stderr}")
+            os.replace(tmp, path)
+        _loaded[key] = ctypes.CDLL(path)
+    return _loaded[key]

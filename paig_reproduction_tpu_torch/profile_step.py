@@ -8,13 +8,17 @@
 Builds the task's model as the CLI does (seed 0, the task's train file
 under ``--data_dir``, the tracked datasets by default), with the given
 model fields, takes a few warm-up steps, then traces ``--steps`` train steps
-with ``torch.profiler``. Prints the median untraced step time, the traced
-host time per step, the device's busy time per step (the union of its
-kernels' intervals) and its idle share of the untraced step, the number of
-kernel launches per step, the kernels that take the most device time, and
-the ST decoder's device time and launches per step on both sides of
-autograd: its CUDA kernel in the forward, and the plain decode's recompute
-and gradient inside the ``st_decode.backward`` range.
+with ``torch.profiler``. The step is the one the trainer runs: the fused
+step, captured as a CUDA graph and replayed (``train_chunk``), unless the
+trainer's predicate turns it off (``PAIG_FUSED=0``: the eager step). Prints
+the median untraced step time, the traced host time per step, the device's
+busy time per step (the union of its kernels' intervals) and its idle share
+of the untraced step, the number of kernel launches (device operations) and
+graph replays per step, the kernels that take the most device time, and the
+ST decoder's device time and launches per step on both sides of autograd:
+its CUDA kernel in the forward, and the plain decode's recompute and
+gradient inside the ``st_decode.backward`` range (the eager step only: a
+replay runs no Python range).
 Needs a CUDA device.
 """
 from __future__ import annotations
@@ -94,28 +98,40 @@ def main(argv=None):
                             steps_per_epoch=25)
     rs = np.random.RandomState(0)
     n = trainer.train_iterator.num_examples
+    reason = trainer.fused_off_reason(args.batch_size)
 
-    def step():
-        trainer.train_step(rs.choice(n, args.batch_size, replace=False))
+    def steps(count):
+        """`count` train steps as the trainer runs them."""
+        if reason is not None:
+            for _ in range(count):
+                trainer.train_step(rs.choice(n, args.batch_size,
+                                             replace=False))
+            return
+        done = 0
+        while done < count:
+            done += trainer.train_chunk(args.batch_size, count - done)[0]
 
-    for _ in range(5):
-        step()
+    def replays():
+        return sum(r for r, _ in trainer.graph_stats().values())
+
+    steps(5)
     torch.cuda.synchronize()
     untraced = []
-    for _ in range(10):
+    for _ in range(5):
         t0 = time.perf_counter()
-        step()
+        steps(10)
         torch.cuda.synchronize()
-        untraced.append((time.perf_counter() - t0) * 1e3)
+        untraced.append((time.perf_counter() - t0) * 1e3 / 10)
 
     activities = [torch.profiler.ProfilerActivity.CPU,
                   torch.profiler.ProfilerActivity.CUDA]
+    replays0 = replays()
     with torch.profiler.profile(activities=activities) as prof:
         t0 = time.perf_counter()
-        for _ in range(args.steps):
-            step()
+        steps(args.steps)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    replays_per_step = (replays() - replays0) / args.steps
 
     # Device activity, without the ranges that user annotations (such as
     # the optimizer's step) leave on the device timeline.
@@ -125,9 +141,12 @@ def main(argv=None):
     per_step = wall_us / args.steps / 1e3
     print(f"{args.task}, {model.cell_type}, {args.compute_dtype}, "
           f"B={args.batch_size}, {args.steps} traced steps on "
-          f"{torch.cuda.get_device_name(0)}")
+          f"{torch.cuda.get_device_name(0)}; step: "
+          + ("graphed (captured CUDA graph, replayed)" if reason is None
+             else f"eager ({reason})"))
+    print(f"graph replays per step: {replays_per_step:.1f}")
     untraced_ms = float(np.median(untraced))
-    print(f"untraced step: median {untraced_ms:.3f} ms over 10")
+    print(f"untraced step: median {untraced_ms:.3f} ms over 5 runs of 10")
     print(f"host time per traced step: {per_step:.3f} ms")
     if not kernels:
         print("device time: not measured (the trace holds no device "

@@ -60,11 +60,13 @@ def _fits(src, shape):
         src.numel() == 1 and torch.Size(shape).numel() == 1)
 
 
-def restore_checkpoint(restore_dir, model, optimizer=None):
+def restore_checkpoint(restore_dir, model, optimizer=None, piece=None):
     """Restore ``restore_dir/model.ckpt`` into ``model`` (and
-    ``optimizer``'s state) in place, on their device. Returns the
-    checkpoint's ``step``, ``epoch`` and ``total_epochs_done`` (0 where it
-    lacks one)."""
+    ``optimizer``'s state) in place, on their device. ``piece(name,
+    tensor)``, where given, cuts a saved tensor of parameter ``name`` to the
+    slice this process holds (tensor parallelism). Returns the checkpoint's
+    ``step``, ``epoch`` and ``total_epochs_done`` (0 where it lacks one)."""
+    piece = piece or (lambda name, t: t)
     path = os.path.abspath(os.path.join(restore_dir, CKPT_NAME))
     if os.path.isdir(path):
         raise ValueError(
@@ -82,6 +84,8 @@ def restore_checkpoint(restore_dir, model, optimizer=None):
     with torch.no_grad():
         for name, t in target.items():
             src = saved.get(name)
+            if src is not None:
+                src = piece(name, src)
             if src is None:
                 missing.append("model/" + name)
             elif not _fits(src, t.shape):
@@ -100,6 +104,9 @@ def restore_checkpoint(restore_dir, model, optimizer=None):
             name = names[id(p)]
             cur = current["state"].get(i, {})
             src = saved_opt.get(name)
+            if src is not None:
+                src = {k: piece(name, v) if v.dim() else v
+                       for k, v in src.items()}
             if src is None:
                 missing += [f"optimizer/{name}/{k}" for k in cur]
             elif any(v.dim() > 0 and v.shape != p.shape

@@ -40,6 +40,7 @@ def arm_generator(seed: int, arm: int) -> torch.Generator:
 class RecipeMixin:
     """Recipe machinery mixed into Trainer (trainer.py). Uses the Trainer's
     model, optimizer, step, iterators, ``_make_optimizer``, ``train_step``
+    or ``train_chunk`` (as its fused predicate says), ``load_whole_state``
     and ``_eval_losses``."""
 
     def set_aux_trigger(self, recons_threshold: float):
@@ -55,11 +56,18 @@ class RecipeMixin:
     # ----- discovery restarts ------------------------------------------------
     def _train_epochs_raw(self, n_epochs, batch_size):
         """Bare training for ``n_epochs`` iterator epochs: no eval, save,
-        logging or trigger machinery (the discovery arms)."""
+        logging or trigger machinery (the discovery arms); in fused chunks
+        where the trainer's predicate admits them."""
         target = self.train_iterator.epochs_completed + n_epochs
+        fused = self._fused_train(batch_size)
+        chunk_k = self._chunk_len()
         while self.train_iterator.epochs_completed < target:
             self._wd_pet()
-            self.train_step(self.train_iterator.next_index_batch(batch_size))
+            if fused:
+                self.train_chunk(batch_size, chunk_k)
+            else:
+                self.train_step(
+                    self.train_iterator.next_index_batch(batch_size))
 
     def _quick_valid_recons(self, batch_size) -> float:
         """Mean valid recons loss, with no artifact or visualization work
@@ -83,7 +91,7 @@ class RecipeMixin:
         for arm in range(restarts):
             fresh = type(self.model)(**self.model.config,
                                      generator=arm_generator(self.seed, arm))
-            self.model.load_state_dict(fresh.state_dict())
+            self.load_whole_state(fresh.state_dict())
             self.optimizer = self._make_optimizer()
             self.step = self._opt_step0 = 0
             self._train_epochs_raw(arm_epochs, batch_size)
@@ -145,7 +153,16 @@ class RecipeMixin:
         --rescue_seed_color, the unexplained colour's) contents; the
         background is pinned to the pixelwise median of the train split and
         frozen (bg_lr_mult=0); the optimizer state and the LR schedule start
-        again over the remaining epochs."""
+        again over the remaining epochs. Under tensor parallelism the
+        split kernels span processes and the surgery, which edits whole
+        tensors on the host, is skipped as the JAX trainer skips it."""
+        if self._split:
+            logger.warning(
+                "auto_rescue: skipped — tensor-sharded params span "
+                "processes and host-side surgery cannot gather them; "
+                "use tools/slot_rescue.py between runs instead")
+            self._rescue_count = 10 ** 9
+            return
         m = self.model
         host = {k: v.detach().cpu().numpy()
                 for k, v in m.state_dict().items()}

@@ -87,27 +87,48 @@ def test_recipe_launches_count_a_recipe_run(tmp_path, monkeypatch):
     """chip_smoke.py's recipe flags, run tiny on the CPU (8 train, 4 valid
     and 4 test sequences, B=4): the kernel's wrapper is called as often as
     recipe_counts and recipe_decodes say the card's run launches it, the
-    refinement's calls included, and every hook fires."""
+    refinement's calls included, and every hook fires. Every train chunk
+    and eval batch runs through a stand-in graph
+    (tests/test_torch_chunk.py), and the launch counters that replays
+    advance (graphs.COUNTERS, as chip_smoke.recipe counts on the card) give
+    the same counts."""
     import logging
+
+    from test_torch_chunk import FakeStep
 
     from paig_reproduction_tpu_torch import cli
     from paig_reproduction_tpu_torch.models import physics_net
+    from paig_reproduction_tpu_torch.train import graphs
+    from paig_reproduction_tpu_torch.train import trainer as trainer_mod
 
     _tiny_data(tmp_path)
+    monkeypatch.setenv("PAIG_FUSED", "1")
+    monkeypatch.setitem(trainer_mod.CAPTURE_CLASSES, "cpu", FakeStep)
+    FakeStep.made.clear()
     fused = tkernel.st_decode_fused
     calls = []
-    monkeypatch.setattr(tkernel, "st_decode_fused",
-                        lambda *a: calls.append(1) or fused(*a))
+
+    def counted(*a):
+        calls.append(1)
+        tkernel.LAUNCHES += 1
+        return fused(*a)
+
+    monkeypatch.setattr(tkernel, "st_decode_fused", counted)
+    monkeypatch.setattr(tkernel, "LAUNCHES", 0)
     refine = physics_net.refine_positions
     in_refine = []
+    refine_count = {"n": 0}
 
     def counted_refine(*args, **kwargs):
-        before = len(calls)
+        before, launches = len(calls), tkernel.LAUNCHES
         out = refine(*args, **kwargs)
         in_refine.append(len(calls) - before)
+        refine_count["n"] += tkernel.LAUNCHES - launches
         return out
 
     monkeypatch.setattr(physics_net, "refine_positions", counted_refine)
+    monkeypatch.setitem(graphs.COUNTERS, "refine", (
+        lambda: refine_count["n"], lambda v: refine_count.update(n=v)))
     monkeypatch.setenv("PAIG_VIZ_EXAMPLES", "1")
     argv = [a for a in chip_smoke.RECIPE_ARGS if a != "--device=cuda"]
     save_dir = tmp_path / "run"
@@ -129,6 +150,12 @@ def test_recipe_launches_count_a_recipe_run(tmp_path, monkeypatch):
     assert len(calls) == launches
     assert sum(in_refine) == refine_launches
     assert set(in_refine) == {chip_smoke.REFINE_ITERS}
+    assert sum(s.replays for s in FakeStep.made) > 0
+    assert any(s.counts.get("refine") for s in FakeStep.made if s.replays)
+    assert tkernel.LAUNCHES == launches
+    assert refine_count["n"] == refine_launches
+    chip_smoke.check_fused_line(save_dir / "log.txt",
+                                "fused step: on (captured CUDA graph)")
     log = (save_dir / "log.txt").read_text()
     for needle in ("discovery restart arm 2/2", "aux_on_recons trigger: ",
                    "- fit_physics: "):
@@ -234,3 +261,59 @@ def test_hang_under_watchdog_exits_75(tmp_path):
         f"--save_dir={tmp_path / 'run'}", "--device=cpu"])
     assert code == 75 and len(fired) == 1
     assert seconds < 100
+
+
+def test_check_fused_line(tmp_path):
+    log = tmp_path / "log.txt"
+    log.write_text("2026-01-01 00:00:00,000 - paig - fused step: off "
+                   "(--debug_nans syncs the host at every operation)\n")
+    chip_smoke.check_fused_line(log, "fused step: off (--debug_nans")
+    with pytest.raises(AssertionError, match="does not say"):
+        chip_smoke.check_fused_line(log)
+    log.write_text("no such line\n")
+    with pytest.raises(AssertionError, match="does not say"):
+        chip_smoke.check_fused_line(log, "fused step: off")
+
+
+def test_parallel_errors_parse_the_workers_results():
+    import numpy as np
+
+    rs = np.random.RandomState(0)
+    ref = {"losses": np.array([1.0, 2.0, 4.0, 8.0]),
+           "split": np.array(["a"]),
+           "g/a": rs.randn(3, 2), "g/b": rs.randn(4) * 10}
+    got = {k: v.copy() for k, v in ref.items()}
+    got["losses"][2] *= 1 + 2e-6
+    got["g/a"][0, 0] += 1e-3
+    errors = chip_smoke.parallel_errors(ref, got)
+    assert errors["loss_rel"] == pytest.approx(2e-6)
+    largest = max(np.abs(ref["g/a"]).max(), np.abs(ref["g/b"]).max())
+    assert errors["grad"] == pytest.approx(1e-3 / largest)
+    assert errors["split_grad"] == pytest.approx(
+        1e-3 / np.abs(ref["g/a"]).max())
+    assert "param_rel" not in errors
+    steps = {"losses": np.ones(4), "p/a": np.full(3, 2.0), "graphs":
+             np.array(1), "split": np.array([], dtype=str)}
+    moved = dict(steps, **{"p/a": np.array([2.0, 2.0, 2.0 + 1e-6])})
+    errors = chip_smoke.parallel_errors(steps, moved)
+    assert errors == {"loss_rel": 0.0, "param_rel": pytest.approx(5e-7)}
+    with pytest.raises(AssertionError, match="different parameters"):
+        chip_smoke.parallel_errors(ref, dict(got, **{"g/c": ref["g/a"]}))
+
+
+def test_graph_and_parallel_configs_are_the_cli_flags():
+    """The graph phase's configurations parse with the CLI's flags and
+    carry the tasks' logged model flags; the parallel phase runs the
+    LSTM baseline of the lstm phase."""
+    from paig_reproduction_tpu_torch import cli
+
+    parser = cli.build_parser()
+    for name, argv in chip_smoke.GRAPH_CONFIGS.items():
+        args = parser.parse_args(argv)
+        assert args.device == "cuda"
+        if name in chip_smoke.TASK_RUNS:
+            assert set(chip_smoke.TASK_RUNS[name]["flags"]) <= set(argv)
+    assert parser.parse_args(chip_smoke.GRAPH_CONFIGS["lstm"]).cell_type \
+        == "lstm"
+    assert chip_smoke.PARALLEL_ARGS == (chip_smoke.TRAIN_ARGS
+                                        + chip_smoke.LSTM_ARGS)

@@ -43,5 +43,8 @@ def test_scan_sees_the_port():
     assert "chip_smoke.py" in names
     for path in (("models", "physics_net.py"), ("data", "generators.py"),
                  ("data", "assets.py"), ("data", "generate.py"),
-                 ("train", "watchdog.py"), ("ops", "stn.py")):
+                 ("train", "watchdog.py"), ("ops", "stn.py"),
+                 ("train", "graphs.py"), ("parallel", "distributed.py"),
+                 ("parallel", "mesh.py"), ("data", "native.py"),
+                 ("utils", "flops.py")):
         assert os.path.join("paig_reproduction_tpu_torch", *path) in names
