@@ -62,14 +62,17 @@ Phases, each printing its elapsed seconds:
                 there, and the kernel's launch count must equal the count
                 of every decode (the refinement's included). It prints
                 each task's median train step;
-10. graph     - the fused step, captured as a CUDA graph: 10 graphed
-                steps against 10 eager ones from the same weights on
-                spring_color B=100 (parameters within 1e-5 relative; bitwise
-                equality said where it holds), a replayed valid eval epoch
-                against the eager one, then the median graphed and eager
-                step of spring_color, 3bp_color, the LSTM and
-                mnist_spring_color (their logged model flags), one replay
-                and two decoder launches a step, and the main path's matrix
+10. graph     - the fused step, captured as a CUDA graph, on spring_color,
+                3bp_color, the LSTM and mnist_spring_color (their logged
+                model flags) at B=100: 10 graphed steps against 10 eager
+                ones from the same weights, cuDNN deterministic (parameters
+                within 1e-5 relative; bitwise equality said where it
+                holds), beside a second eager run's difference from the
+                first, also after 10 more steps with cuDNN not
+                deterministic; a replayed valid eval epoch against the
+                eager one;
+                the median graphed and eager step, one replay and two
+                decoder launches a step; and the main path's matrix
                 FLOPs a step (utils/flops.py) with their rate in the graphed
                 step. Every CLI run of the other phases must log
                 ``fused step: on (captured CUDA graph)`` (the runtime
@@ -79,10 +82,12 @@ Phases, each printing its elapsed seconds:
                 the port's NativeBatcher at the run's seed, every decode
                 counted (the captured step fed through its static batch
                 buffer);
-12. parallel  - DP and TP (--n_model_shards=2) in 2 processes against 1 on
-                the same global batch of spring_color B=100: the losses
-                within 1e-5 relative, the gradients within 1e-4 of the
-                largest (of the split kernels' largest for them). NCCL with
+12. parallel  - DP and TP (--n_model_shards=2) in 2 processes against 1
+                process on the same global batch of spring_color B=100,
+                which computes the ranks' work and adds it in the same
+                order (PARALLEL_ARGS): the losses within 1e-5 relative, the
+                gradients within 1e-4 of the largest (of the split kernels'
+                largest for them). NCCL with
                 2 or more cards; on one card gloo on CUDA tensors (eager)
                 and a 1-process NCCL group through the graphed step, its
                 parameters after 10 steps against eager ones. It prints
@@ -248,15 +253,15 @@ GRAPH_PARAM_RTOL = 1e-5
 # them); the ranks sum partial products and gradients in another order.
 PARALLEL_LOSS_RTOL = 1e-5
 PARALLEL_GRAD_TOL = 1e-4
-# The parallel phase runs the LSTM baseline. At the spring cell's
-# initialization the rollout starts with the objects nearly on top of each
-# other, and the near-collision Jacobians make the encoder's gradient a sum
-# of terms many orders larger than the result that cancel: one process's
-# gradient over a batch differs from the sum of its two halves' by the
-# gradient's own size in float32 and by 1e-3 of it in float64, so no
-# reordered sum can be held to it. The LSTM's is well conditioned (the two
-# agree within 4e-8), and its TP kernels are the cell model's.
-PARALLEL_ARGS = TRAIN_ARGS + LSTM_ARGS
+# The parallel phase runs the main path's spring cell. Its gradient at
+# initialization moves by 1e-3 of its largest value when the input moves by
+# as little as 1e-15 (float64, on the CPU), while the forward moves in
+# proportion: any reordered sum changes it that far, so the one process
+# that the ranks are held to computes what they compute (DP: each data
+# rank's rows in a forward and backward of their own, the gradients added;
+# TP: each split kernel's pieces, their partial products added or
+# concatenated) and adds in the same order. PERF.md, section 7.
+PARALLEL_ARGS = TRAIN_ARGS
 # What log.txt says of a run's train step on the card: the fused step,
 # captured as a CUDA graph.
 FUSED_ON = "fused step: on (captured CUDA graph)"
@@ -873,6 +878,44 @@ def recipe_counts(log_path, arms, arm_epochs, loop_epochs, steps_per_epoch,
     return steps, batches, valid_evals + 2 + 5 * fits
 
 
+@contextmanager
+def refinement_launches():
+    """Counts the kernel's launches inside the Gauss-Newton position
+    refinement, in eager calls and in replays of captured steps. A capture
+    runs nothing, so each captured step keeps the refinement's launches
+    that its capture recorded, and every replay of it adds them. Yields a
+    function that returns the count."""
+    from paig_reproduction_tpu_torch.models import physics_net
+    from paig_reproduction_tpu_torch.ops.cuda import st_decoder as sd
+    from paig_reproduction_tpu_torch.train.graphs import CapturedStep
+
+    count = {"n": 0}
+    captured = []
+    refine, init = physics_net.refine_positions, CapturedStep.__init__
+
+    def counted_refine(*args, **kwargs):
+        before = sd.LAUNCHES
+        out = refine(*args, **kwargs)
+        count["n"] += sd.LAUNCHES - before
+        return out
+
+    def counted_init(self, fn, signature=None):
+        before = count["n"]
+        init(self, fn, signature)
+        self.refine_launches = count["n"] - before
+        count["n"] = before
+        captured.append(self)
+
+    physics_net.refine_positions = counted_refine
+    CapturedStep.__init__ = counted_init
+    try:
+        yield lambda: count["n"] + sum(g.refine_launches * g.replays
+                                       for g in captured)
+    finally:
+        physics_net.refine_positions = refine
+        CapturedStep.__init__ = init
+
+
 def recipe(batch_size=100):
     """The single-command spring recipe through the CLI entry at full
     width, with every hook asserted from log.txt and every decode counted;
@@ -881,40 +924,19 @@ def recipe(batch_size=100):
     import torch
     from paig_reproduction_tpu_torch import cli
     from paig_reproduction_tpu_torch.data.iterators import gather_batch
-    from paig_reproduction_tpu_torch.models import physics_net
     from paig_reproduction_tpu_torch.ops.cuda import st_decoder as sd
-    from paig_reproduction_tpu_torch.train import graphs
 
     save_dir = os.path.join(tempfile.mkdtemp(prefix="paig_recipe_"), "run")
     argv = RECIPE_ARGS + [f"--batch_size={batch_size}",
                           f"--data_dir={DATA_DIR}", f"--save_dir={save_dir}"]
-    refine = physics_net.refine_positions
-    # The refinement's launches, replays of captured eval batches included
-    # (a replay advances every counter of graphs.COUNTERS as its capture
-    # saw it advance).
-    refine_count = {"n": 0}
-
-    def counted_refine(*args, **kwargs):
-        before = sd.LAUNCHES
-        out = refine(*args, **kwargs)
-        refine_count["n"] += sd.LAUNCHES - before
-        return out
-
-    physics_net.refine_positions = counted_refine
-    graphs.COUNTERS["refine"] = (lambda: refine_count["n"],
-                                 lambda v: refine_count.update(n=v))
-    try:
-        with cli_run():
-            sd.LAUNCHES = 0
-            t0 = time.perf_counter()
-            trainer, test_trainer = cli.main(argv)
-            torch.cuda.synchronize()
-            seconds = time.perf_counter() - t0
-            launches = sd.LAUNCHES
-    finally:
-        physics_net.refine_positions = refine
-        del graphs.COUNTERS["refine"]
-    refine_launches = refine_count["n"]
+    with refinement_launches() as refine_count, cli_run():
+        sd.LAUNCHES = 0
+        t0 = time.perf_counter()
+        trainer, test_trainer = cli.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = sd.LAUNCHES
+        refine_launches = refine_count()
     check_fused_line(os.path.join(save_dir, "log.txt"))
 
     log_path = os.path.join(save_dir, "log.txt")
@@ -1220,26 +1242,38 @@ def rel_diff(a, b):
 def graph_vs_eager(argv, data_dir, steps=10, batch_size=100):
     """`steps` graphed steps (one chunk: the warm-up step, the capture,
     then replays) against as many eager steps on the same index batches
-    from the same weights, cuDNN deterministic; then one valid eval epoch
-    replayed against the eager one. Returns (the parameters' largest
-    relative difference, whether they are bitwise equal, the eval losses'
-    largest relative difference)."""
+    from the same weights, and a second eager run of the same steps as the
+    noise floor, cuDNN deterministic; then one valid eval epoch replayed
+    against the eager one; then 10 more steps of both eager runs with
+    cuDNN free to pick nondeterministic algorithms (the default). Returns
+    the largest relative difference of the parameters (graphed and eager:
+    ``param_rel``; eager and eager: ``eager_rel``, then ``free_rel``),
+    whether each pair is bitwise equal, and the eval losses' largest
+    relative difference (``eval_rel``)."""
     import numpy as np
     import torch
 
-    eager = make_trainer(argv, data_dir, batch_size)
-    graphed = make_trainer(argv, data_dir, batch_size)
-    graphed.model.load_state_dict(eager.model.state_dict())
+    eager, again, graphed = (make_trainer(argv, data_dir, batch_size)
+                             for _ in range(3))
+    for t in (again, graphed):
+        t.model.load_state_dict(eager.model.state_dict())
     n = eager.train_iterator.num_examples
     rs = np.random.RandomState(0)
     idxs = np.stack([rs.choice(n, batch_size, replace=False)
                      for _ in range(steps)])
+
+    def compare(t):
+        pairs = list(zip(t.model.parameters(), eager.model.parameters()))
+        return (max(rel_diff(p, q) for p, q in pairs),
+                all(torch.equal(p, q) for p, q in pairs))
+
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     try:
         with fused_env("0"):
             for idx in idxs:
                 eager.train_step(idx)
+                again.train_step(idx)
         with fused_env(None):
             if graphed.fused_off_reason(batch_size) is not None:
                 raise AssertionError("the fused step is off on the card: "
@@ -1248,10 +1282,8 @@ def graph_vs_eager(argv, data_dir, steps=10, batch_size=100):
             done, _ = graphed.train_chunk(batch_size, steps)
             release(graphed)
         torch.cuda.synchronize()
-        pairs = list(zip(graphed.model.parameters(),
-                         eager.model.parameters()))
-        worst = max(rel_diff(p, q) for p, q in pairs)
-        bitwise = all(torch.equal(p, q) for p, q in pairs)
+        out = dict(zip(("param_rel", "bitwise"), compare(graphed)))
+        out.update(zip(("eager_rel", "eager_bitwise"), compare(again)))
         evals = []
         for t, env in ((eager, "0"), (graphed, None)):
             t.valid_iterator.indices = np.arange(
@@ -1260,19 +1292,35 @@ def graph_vs_eager(argv, data_dir, steps=10, batch_size=100):
             with fused_env(env):
                 evals.append(torch.from_numpy(
                     t._eval_losses("valid", batch_size)[0]))
-        eval_rel = rel_diff(evals[1], evals[0])
+        out["eval_rel"] = rel_diff(evals[1], evals[0])
+        # The noise floor a run gets by default: both eager trainers 10
+        # more steps with cuDNN free to pick nondeterministic algorithms.
+        torch.backends.cudnn.deterministic = False
+        with fused_env("0"):
+            for idx in idxs:
+                eager.train_step(idx)
+                again.train_step(idx)
+        torch.cuda.synchronize()
+        out.update(zip(("free_rel", "free_bitwise"), compare(again)))
     finally:
         torch.backends.cudnn.deterministic = deterministic
+
+    def said(rel, bitwise):
+        return f"{rel:.3e}{' (bitwise equal)' if bitwise else ''}"
+
     print(f"{done} graphed steps against {steps} eager ones from the same "
-          f"weights: parameters' largest relative difference {worst:.3e}"
-          f"{' (bitwise equal)' if bitwise else ''} (tolerance "
+          f"weights: parameters' largest relative difference "
+          f"{said(out['param_rel'], out['bitwise'])}; eager against eager "
+          f"{said(out['eager_rel'], out['eager_bitwise'])} (tolerance "
           f"{GRAPH_PARAM_RTOL}); graphs {graphed.graph_stats()}; valid eval "
-          f"epoch replayed against eager: {eval_rel:.3e}")
-    if not (done == steps and worst <= GRAPH_PARAM_RTOL
-            and eval_rel <= GRAPH_PARAM_RTOL):
+          f"epoch replayed against eager: {out['eval_rel']:.3e}; the two "
+          f"eager runs after 10 more steps each, cuDNN not deterministic: "
+          f"{said(out['free_rel'], out['free_bitwise'])}")
+    if not (done == steps and out["param_rel"] <= GRAPH_PARAM_RTOL
+            and out["eval_rel"] <= GRAPH_PARAM_RTOL):
         raise AssertionError("the graphed step or eval disagrees with the "
                              "eager one")
-    return worst, bitwise, eval_rel
+    return out
 
 
 def graphed_step_ms(trainer, batch_size=100, steps=10, runs=5):
@@ -1306,20 +1354,20 @@ def graphed_step_ms(trainer, batch_size=100, steps=10, runs=5):
 
 
 def graph(eager_spring_ms, batch_size=100):
-    """The graph phase: graphed against eager on spring_color (parameters
-    after 10 steps, an eval epoch), then each configuration's median
-    graphed and eager step, replays and launches counted, and the main
-    path's matrix FLOPs a step and their rate in the graphed step."""
+    """The graph phase, for each configuration of GRAPH_CONFIGS: graphed
+    against eager (parameters after 10 steps, beside two eager runs' own
+    difference, and an eval epoch), then the median graphed and eager
+    step, replays and launches counted; and the main path's matrix FLOPs
+    a step and their rate in the graphed step."""
     from paig_reproduction_tpu_torch.utils.flops import step_flops
 
-    spring = GRAPH_CONFIGS["spring_color"]
-    worst, bitwise, eval_rel = graph_vs_eager(spring, DATA_DIR,
-                                              batch_size=batch_size)
     steps = {}
     for name, argv in GRAPH_CONFIGS.items():
         task = argv[0].split("=")[1]
         data_dir = (generated_dir(task) if TASK_RUNS.get(task, {}).get(
             "generate") else DATA_DIR)
+        print(f"{name}:")
+        steps[name] = graph_vs_eager(argv, data_dir, batch_size=batch_size)
         trainer = make_trainer(argv, data_dir, batch_size)
         with fused_env(None):
             ms, replays, launches = graphed_step_ms(trainer, batch_size)
@@ -1329,7 +1377,7 @@ def graph(eager_spring_ms, batch_size=100):
                                  f"expected 1 and 2")
         eager = (eager_spring_ms if name == "spring_color"
                  else step_ms(trainer, batch_size))
-        steps[name] = dict(graphed_ms=ms, eager_ms=eager,
+        steps[name].update(graphed_ms=ms, eager_ms=eager,
                            replays_per_step=replays,
                            launches_per_step=launches)
         print(f"{name}: graphed step {ms:.3f} ms, eager {eager:.3f} ms "
@@ -1342,7 +1390,9 @@ def graph(eager_spring_ms, batch_size=100):
                   f"{flops}; {flops / ms / 1e9:.3f} TFLOP/s in the graphed "
                   f"step")
         del trainer
-    return dict(param_rel=worst, bitwise=bitwise, eval_rel=eval_rel,
+    return dict(param_rel=max(v["param_rel"] for v in steps.values()),
+                bitwise=all(v["bitwise"] for v in steps.values()),
+                eval_rel=max(v["eval_rel"] for v in steps.values()),
                 steps=steps)
 
 
@@ -1411,27 +1461,50 @@ def native_loader(batch_size=100, epochs=2):
 # One process of the parallel phase (PARALLEL_ARGS at B=100 on the tracked
 # file, weights from seed 0), rank 0 saving to $OUT. MODE=grads: the losses
 # and gradients of one forward and backward on its rows of a global batch,
-# every split tensor made whole. MODE=steps: 10 train steps as the trainer
-# runs them (graphed where its predicate admits it) and the whole
-# parameters after them.
+# every split tensor made whole; outside a group, EMULATE=dp or tp computes
+# the 2 ranks' work in this one process (see PARALLEL_ARGS). MODE=steps: 10
+# train steps as the trainer runs them (graphed where its predicate admits
+# it) and the whole parameters after them.
 PARALLEL_WORKER = r"""
-import os, sys
+import functools, os, sys
 import numpy as np
 import torch
+import torch.nn.functional as F
 sys.path.insert(0, os.environ["PAIG_REPO"])
 from paig_reproduction_tpu_torch import cli
 from paig_reproduction_tpu_torch.data.iterators import gather_batch
 from paig_reproduction_tpu_torch.data.iterators import get_iterators
 from paig_reproduction_tpu_torch.parallel.distributed import init_distributed
-from paig_reproduction_tpu_torch.parallel.mesh import make_mesh
-from paig_reproduction_tpu_torch.train.trainer import Trainer
+from paig_reproduction_tpu_torch.parallel.mesh import make_mesh, split_dims
+from paig_reproduction_tpu_torch.train.trainer import EVAL_KEYS, Trainer
 from paig_reproduction_tpu_torch.utils.misc import use_full_f32
+
+
+def emulated_split(dim, n, layer, x):
+    # The n model ranks' partial products of a kernel split on its input
+    # dim, added in rank order, or their output columns concatenated.
+    dt = layer.compute_dtype or x.dtype
+    if dim == 1:
+        per = layer.weight.shape[1] // n
+        y = None
+        for r in range(n):
+            part = F.linear(x.narrow(-1, r * per, per).to(dt),
+                            layer.weight.narrow(1, r * per, per)
+                            .contiguous().to(dt))
+            y = part if y is None else y + part
+    else:
+        per = layer.weight.shape[0] // n
+        y = torch.cat([F.linear(x.to(dt), layer.weight.narrow(
+            0, r * per, per).to(dt)) for r in range(n)], dim=-1)
+    return y + layer.bias.to(dt)
+
 
 use_full_f32()
 torch.backends.cudnn.deterministic = True
 args = cli.build_parser().parse_args(sys.argv[1:])
 B = int(os.environ.get("BATCH", "100"))
 grads_mode = os.environ["MODE"] == "grads"
+emulate = os.environ.get("EMULATE", "")
 pid = init_distributed(device=args.device,
                        backend=os.environ.get("BACKEND") or None)
 m = make_mesh(int(os.environ["N_MODEL"]))
@@ -1446,10 +1519,33 @@ out = {"split": np.array(sorted(t._split))}
 reason = t.fused_off_reason(B)
 if grads_mode:
     t._fill_scalars(0)
-    batch = gather_batch(t._split_u8("train"), idxs[0][m.rows(B)])
-    out["losses"] = t._forward_backward(batch).cpu().numpy()
-    out.update({"g/" + k: t._whole(k, p.grad).cpu().numpy()
-                for k, p in t.model.named_parameters() if p.grad is not None})
+    data = t._split_u8("train")
+    if emulate == "tp":
+        modules = dict(t.model.named_modules())
+        for name, dim in split_dims(t.model, 2).items():
+            modules[name.rsplit(".", 1)[0]].tp_forward = functools.partial(
+                emulated_split, dim, 2)
+        out["split"] = np.array(sorted(split_dims(t.model, 2)))
+    if emulate == "dp":
+        losses, grads = [], []
+        for half in (idxs[0][:B // 2], idxs[0][B // 2:]):
+            loss, ev = t._losses(gather_batch(data, half), t.train_net,
+                                 aux_scale=t._scalars[1])
+            t.optimizer.zero_grad(set_to_none=True)
+            (loss * 0.5).backward()
+            losses.append(torch.stack([ev[k] for k in EVAL_KEYS] + [loss]))
+            grads.append({k: p.grad.clone()
+                          for k, p in t.model.named_parameters()
+                          if p.grad is not None})
+        out["losses"] = ((losses[0] + losses[1]) / 2).detach().cpu().numpy()
+        out.update({"g/" + k: (g + grads[1][k]).cpu().numpy()
+                    for k, g in grads[0].items()})
+    else:
+        batch = gather_batch(data, idxs[0][m.rows(B)])
+        out["losses"] = t._forward_backward(batch).cpu().numpy()
+        out.update({"g/" + k: t._whole(k, p.grad).cpu().numpy()
+                    for k, p in t.model.named_parameters()
+                    if p.grad is not None})
 else:
     if reason is None:
         rows = iter(idxs[1:])
@@ -1466,7 +1562,7 @@ else:
                 for k, p in t.model.named_parameters()})
 if pid == 0:
     np.savez(os.environ["OUT"], **out)
-print("rank", pid, os.environ["MODE"], "fused step:",
+print("rank", pid, os.environ["MODE"], emulate or "", "fused step:",
       "on" if reason is None else f"off ({reason})",
       "graphs", t.graph_stats(), flush=True)
 """
@@ -1503,10 +1599,12 @@ def parallel_errors(ref, got):
     return out
 
 
-def run_ranks(mode, n, n_model, out, backend=None, fused=None):
+def run_ranks(mode, n, n_model, out, backend=None, fused=None, emulate="",
+              extra=(), env_extra=None, timeout=300):
     """PARALLEL_WORKER in MODE `mode` in `n` processes (without the PAIG_*
-    variables when `n` is 0: one process outside any group). Returns their
-    outputs."""
+    variables when `n` is 0: one process outside any group, emulating the
+    ranks with `emulate`), with `extra` flags after PARALLEL_ARGS. Returns
+    their outputs."""
     import socket
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
@@ -1517,7 +1615,8 @@ def run_ranks(mode, n, n_model, out, backend=None, fused=None):
                if k not in ("PAIG_COORDINATOR", "PAIG_NUM_PROCESSES",
                             "PAIG_PROCESS_ID", "PAIG_FUSED")}
         env.update(PAIG_REPO=REPO, OUT=out, N_MODEL=str(n_model),
-                   BACKEND=backend or "", MODE=mode)
+                   BACKEND=backend or "", MODE=mode, EMULATE=emulate,
+                   **(env_extra or {}))
         if fused is not None:
             env["PAIG_FUSED"] = fused
         if n:
@@ -1525,10 +1624,10 @@ def run_ranks(mode, n, n_model, out, backend=None, fused=None):
                        PAIG_NUM_PROCESSES=str(n), PAIG_PROCESS_ID=str(rank))
         procs.append(subprocess.Popen(
             [sys.executable, "-c", PARALLEL_WORKER, *PARALLEL_ARGS,
-             f"--data_dir={DATA_DIR}"], env=env, cwd=REPO,
+             f"--data_dir={DATA_DIR}", *extra], env=env, cwd=REPO,
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     atexit.register(lambda: [p.kill() for p in procs if p.poll() is None])
-    logs = [p.communicate(timeout=300)[0] for p in procs]
+    logs = [p.communicate(timeout=timeout)[0] for p in procs]
     for p, log in zip(procs, logs):
         if p.returncode:
             raise RuntimeError(f"a parallel worker failed:\n{log[-4000:]}")
@@ -1538,11 +1637,12 @@ def run_ranks(mode, n, n_model, out, backend=None, fused=None):
 
 def parallel():
     """DP and TP (--n_model_shards=2) in 2 processes against 1 process on
-    the same global batch: NCCL with a card each where there are 2 or
+    the same global batch that computes the ranks' work and adds it in the
+    same order (PARALLEL_ARGS): NCCL with a card each where there are 2 or
     more; on one card, gloo on CUDA tensors (eager: gloo's collectives
     cannot be captured), and a 1-process NCCL group through the graphed
-    step. It runs the LSTM baseline (PARALLEL_ARGS), whose TP kernels are
-    the cell model's. Returns    the phase's numbers."""
+    step against one process's eager steps. Returns the phase's
+    numbers."""
     import numpy as np
     import torch
 
@@ -1557,12 +1657,11 @@ def parallel():
     cards = torch.cuda.device_count()
     backend = "nccl" if cards >= 2 else "gloo"
     print(f"{cards} card(s): 2 ranks over {backend}")
-    print(run_ranks("grads", 0, 1, path("one")))
-    ref = load("one")
     results = {"backend": backend, "cards": cards}
     for name, n_model in (("dp", 1), ("tp", 2)):
+        print(run_ranks("grads", 0, 1, path("one_" + name), emulate=name))
         print(run_ranks("grads", 2, n_model, path(name), backend=backend))
-        got = load(name)
+        ref, got = load("one_" + name), load(name)
         errors = parallel_errors(ref, got)
         results[name] = errors
         print(f"{name}, 2 {backend} ranks against 1 process: "
@@ -1571,8 +1670,10 @@ def parallel():
                 and errors["grad"] <= PARALLEL_GRAD_TOL
                 and (errors["split_grad"] or 0.0) <= PARALLEL_GRAD_TOL):
             raise AssertionError(f"{name} disagrees with one process")
-        if n_model == 2 and not len(got["split"]):
-            raise AssertionError("TP split no kernel")
+        if list(got["split"]) != list(ref["split"]) or (
+                n_model == 2 and not len(got["split"])):
+            raise AssertionError(f"{name} split other kernels than the "
+                                 f"one process: {list(got['split'])}")
     if cards < 2:
         print(run_ranks("steps", 0, 1, path("one_steps"), fused="0"))
         print(run_ranks("steps", 1, 1, path("nccl1"), backend="nccl"))

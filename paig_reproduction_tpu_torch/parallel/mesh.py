@@ -20,8 +20,7 @@ averages.
   ``velocity_encoder`` is not caught) on its input dim, each where
   ``n_model`` divides that dim. An input-dim split computes each rank's
   partial product and sums it with an ``all_reduce``; an output-dim split
-  gathers the pieces, as a sum of zero-padded pieces (an ``all_reduce``,
-  which the ``gloo`` backend also takes for CUDA tensors). Both are
+  gathers the pieces with an ``all_gather``. Both are
   ``torch.distributed.nn.functional`` collectives, whose backward sums the
   gradients of every rank of the model group: upstream of a collective
   every gradient comes out ``n_model`` times too large, so every gradient
@@ -165,15 +164,13 @@ def _input_split_forward(mesh, layer, x):
 
 
 def _output_split_forward(mesh, layer, x):
-    """y = x @ W.T + b with W split on its output dim: this rank's output
-    columns, gathered as a sum of zero-padded pieces."""
-    from torch.distributed.nn.functional import all_reduce
+    """y = x @ W.T + b with W split on its output dim: every rank's output
+    columns, gathered over the model group."""
+    from torch.distributed.nn.functional import all_gather
     dt = layer.compute_dtype or x.dtype
     part = F.linear(x.to(dt), layer.weight.to(dt))
-    per, n = part.shape[-1], mesh.shape["model"]
-    r = mesh.model_rank
-    padded = F.pad(part, (r * per, (n - 1 - r) * per))
-    return all_reduce(padded, group=mesh.model_group) + layer.bias.to(dt)
+    parts = all_gather(part.contiguous(), group=mesh.model_group)
+    return torch.cat(parts, dim=-1) + layer.bias.to(dt)
 
 
 def shard_model(model: torch.nn.Module, mesh: Mesh) -> dict:

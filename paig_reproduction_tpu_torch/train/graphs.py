@@ -8,21 +8,17 @@ so the caller warms the step up first with one real step (lazy state such
 as the optimizer's moments and the decoder kernel's launch setup is made
 there), and a replay runs every recorded launch.
 
-The ST decoder's wrapper counts its launches in Python, which a replay does
-not call: a replay adds the launches its capture recorded to every counter
-in ``COUNTERS`` (``ops/cuda/st_decoder.py``'s ``LAUNCHES``, and any a caller
-registers), so a count over graphed steps is the count the same steps would
-give eagerly.
+The ST decoder's wrapper counts its launches in Python
+(``ops/cuda/st_decoder.py``'s ``LAUNCHES``), which a replay does not call:
+a capture keeps the launches it recorded and leaves the count as it was,
+and each replay adds them, so a count over graphed steps is the count the
+same steps would give eagerly.
 """
 from __future__ import annotations
 
 import torch
 
 from paig_reproduction_tpu_torch.ops.cuda import st_decoder
-
-# Launch counters that replays advance: name -> (read, write).
-COUNTERS = {"st_decode": (lambda: st_decoder.LAUNCHES,
-                          lambda v: setattr(st_decoder, "LAUNCHES", v))}
 
 
 class CapturedStep:
@@ -33,13 +29,12 @@ class CapturedStep:
 
     def __init__(self, fn, signature=None):
         self.signature = signature
-        self.counts = counted(self._record, fn)
+        before = st_decoder.LAUNCHES
+        self._record(fn)
+        # Decoder launches a replay runs.
+        self.launches = st_decoder.LAUNCHES - before
+        st_decoder.LAUNCHES = before
         self.replays = 0
-
-    @property
-    def launches(self) -> int:
-        """Decoder launches a replay runs."""
-        return self.counts.get("st_decode", 0)
 
     def _record(self, fn):
         self.graph = torch.cuda.CUDAGraph()
@@ -51,9 +46,7 @@ class CapturedStep:
 
     def replay(self):
         self._replay()
-        for name, n in self.counts.items():
-            read, write = COUNTERS[name]
-            write(read() + n)
+        st_decoder.LAUNCHES += self.launches
         self.replays += 1
 
     @staticmethod
@@ -66,15 +59,3 @@ class CapturedStep:
         with torch.cuda.stream(side):
             fn()
         torch.cuda.current_stream(device).wait_stream(side)
-
-
-def counted(call, *args) -> dict:
-    """``call(*args)`` with every counter of ``COUNTERS`` left as it was;
-    returns how far the call moved each."""
-    before = {name: read() for name, (read, _) in COUNTERS.items()}
-    call(*args)
-    counts = {}
-    for name, (read, write) in COUNTERS.items():
-        counts[name] = read() - before[name]
-        write(before[name])
-    return counts

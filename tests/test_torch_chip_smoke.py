@@ -89,16 +89,15 @@ def test_recipe_launches_count_a_recipe_run(tmp_path, monkeypatch):
     recipe_counts and recipe_decodes say the card's run launches it, the
     refinement's calls included, and every hook fires. Every train chunk
     and eval batch runs through a stand-in graph
-    (tests/test_torch_chunk.py), and the launch counters that replays
-    advance (graphs.COUNTERS, as chip_smoke.recipe counts on the card) give
-    the same counts."""
+    (tests/test_torch_chunk.py), and the counts that replays advance (the
+    wrapper's, and chip_smoke.refinement_launches's, as chip_smoke.recipe
+    counts on the card) are the same."""
     import logging
 
     from test_torch_chunk import FakeStep
 
     from paig_reproduction_tpu_torch import cli
     from paig_reproduction_tpu_torch.models import physics_net
-    from paig_reproduction_tpu_torch.train import graphs
     from paig_reproduction_tpu_torch.train import trainer as trainer_mod
 
     _tiny_data(tmp_path)
@@ -117,27 +116,24 @@ def test_recipe_launches_count_a_recipe_run(tmp_path, monkeypatch):
     monkeypatch.setattr(tkernel, "LAUNCHES", 0)
     refine = physics_net.refine_positions
     in_refine = []
-    refine_count = {"n": 0}
 
     def counted_refine(*args, **kwargs):
-        before, launches = len(calls), tkernel.LAUNCHES
+        before = len(calls)
         out = refine(*args, **kwargs)
         in_refine.append(len(calls) - before)
-        refine_count["n"] += tkernel.LAUNCHES - launches
         return out
 
     monkeypatch.setattr(physics_net, "refine_positions", counted_refine)
-    monkeypatch.setitem(graphs.COUNTERS, "refine", (
-        lambda: refine_count["n"], lambda v: refine_count.update(n=v)))
     monkeypatch.setenv("PAIG_VIZ_EXAMPLES", "1")
     argv = [a for a in chip_smoke.RECIPE_ARGS if a != "--device=cuda"]
     save_dir = tmp_path / "run"
     logger = logging.getLogger("paig")
     handlers = list(logger.handlers)
     try:
-        trainer, test_trainer = cli.main(argv + [
-            "--batch_size=4", f"--data_dir={tmp_path}",
-            f"--save_dir={save_dir}", "--device=cpu"])
+        with chip_smoke.refinement_launches() as refine_count:
+            trainer, test_trainer = cli.main(argv + [
+                "--batch_size=4", f"--data_dir={tmp_path}",
+                f"--save_dir={save_dir}", "--device=cpu"])
     finally:
         for h in set(logger.handlers) - set(handlers):
             logger.removeHandler(h)
@@ -151,9 +147,8 @@ def test_recipe_launches_count_a_recipe_run(tmp_path, monkeypatch):
     assert sum(in_refine) == refine_launches
     assert set(in_refine) == {chip_smoke.REFINE_ITERS}
     assert sum(s.replays for s in FakeStep.made) > 0
-    assert any(s.counts.get("refine") for s in FakeStep.made if s.replays)
     assert tkernel.LAUNCHES == launches
-    assert refine_count["n"] == refine_launches
+    assert refine_count() == refine_launches
     chip_smoke.check_fused_line(save_dir / "log.txt",
                                 "fused step: on (captured CUDA graph)")
     log = (save_dir / "log.txt").read_text()
@@ -162,6 +157,41 @@ def test_recipe_launches_count_a_recipe_run(tmp_path, monkeypatch):
         assert needle in log
     assert test_trainer.model.refine_recons_pos == chip_smoke.REFINE_ITERS
     assert trainer.train_net.refine_recons_pos == 0
+
+
+def test_refinement_launches_count_replays(monkeypatch):
+    """chip_smoke.refinement_launches and the captured step's own count
+    on the card's terms: a capture runs the step's Python once and records
+    its launches without changing either count, and a replay runs no
+    Python and adds what its capture recorded."""
+    from paig_reproduction_tpu_torch.models import physics_net
+    from paig_reproduction_tpu_torch.train.graphs import CapturedStep
+
+    def refine(*a, **k):
+        tkernel.LAUNCHES += 4
+
+    def step():
+        tkernel.LAUNCHES += 2
+        physics_net.refine_positions()
+
+    class Recorded(CapturedStep):
+        def _record(self, fn):
+            fn()
+
+        def _replay(self):
+            pass
+
+    monkeypatch.setattr(physics_net, "refine_positions", refine)
+    monkeypatch.setattr(tkernel, "LAUNCHES", 0)
+    with chip_smoke.refinement_launches() as refine_count:
+        step()
+        graph = Recorded(step)
+        assert (tkernel.LAUNCHES, refine_count()) == (6, 4)
+        assert graph.launches == 6
+        for _ in range(3):
+            graph.replay()
+        assert (tkernel.LAUNCHES, refine_count()) == (6 + 3 * 6, 4 + 3 * 4)
+    assert physics_net.refine_positions is refine
 
 
 def test_recipe_flags_are_the_logged_recipes():
@@ -303,8 +333,8 @@ def test_parallel_errors_parse_the_workers_results():
 
 def test_graph_and_parallel_configs_are_the_cli_flags():
     """The graph phase's configurations parse with the CLI's flags and
-    carry the tasks' logged model flags; the parallel phase runs the
-    LSTM baseline of the lstm phase."""
+    carry the tasks' logged model flags; the parallel phase runs the main
+    path's command."""
     from paig_reproduction_tpu_torch import cli
 
     parser = cli.build_parser()
@@ -315,5 +345,4 @@ def test_graph_and_parallel_configs_are_the_cli_flags():
             assert set(chip_smoke.TASK_RUNS[name]["flags"]) <= set(argv)
     assert parser.parse_args(chip_smoke.GRAPH_CONFIGS["lstm"]).cell_type \
         == "lstm"
-    assert chip_smoke.PARALLEL_ARGS == (chip_smoke.TRAIN_ARGS
-                                        + chip_smoke.LSTM_ARGS)
+    assert chip_smoke.PARALLEL_ARGS == chip_smoke.TRAIN_ARGS

@@ -28,7 +28,6 @@ from paig_reproduction_tpu_torch.data import iterators
 from paig_reproduction_tpu_torch.models import PhysicsNet
 from paig_reproduction_tpu_torch.ops.cuda import st_decoder as tkernel
 from paig_reproduction_tpu_torch.train import trainer as trainer_mod
-from paig_reproduction_tpu_torch.train import graphs
 from paig_reproduction_tpu_torch.train.graphs import CapturedStep
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -77,9 +76,10 @@ def paig_log(caplog):
 
 class FakeStep(CapturedStep):
     """A stand-in for the CUDA graph on the CPU: capture records the body
-    without running it (as a capture does), a replay calls it, counting
-    the decoder launches it makes once (what a capture records), and the
-    warm-up calls it directly."""
+    without running it (as a capture does), a replay calls it with the
+    wrapper's count left as it was and keeps the decoder launches it made
+    (what a capture records, which ``replay`` then adds), and the warm-up
+    calls it directly."""
 
     made = []
 
@@ -88,7 +88,10 @@ class FakeStep(CapturedStep):
         FakeStep.made.append(self)
 
     def _replay(self):
-        self.counts = graphs.counted(self.fn)
+        before = tkernel.LAUNCHES
+        self.fn()
+        self.launches = tkernel.LAUNCHES - before
+        tkernel.LAUNCHES = before
 
     @staticmethod
     def warm_up(fn, device):

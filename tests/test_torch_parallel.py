@@ -146,6 +146,87 @@ def test_two_ranks_match_one_process(tmp_path, one_process, n_model):
         assert np.abs(got[k] - ref[k]).max() <= 1e-4 * largest, k
 
 
+@pytest.mark.parametrize("n_model", [1, 2], ids=["dp", "tp"])
+def test_spring_ranks_match_one_process_doing_their_work(tmp_path, n_model):
+    """chip_smoke.py's parallel phase on the CPU at the main path's width
+    (spring_color, 32 px, seq 12; B=8 on the tracked file): 2 gloo ranks
+    against one process that computes the ranks' work and adds it in the
+    same order, within the tolerances above. (The spring cell's gradient
+    at initialization moves by 1e-3 of its largest value under any
+    reordered sum, so it is not held to a plain one-process step.)"""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+
+    mode = "dp" if n_model == 1 else "tp"
+    kw = dict(extra=("--device=cpu",), env_extra={"BATCH": "8"},
+              timeout=120)
+    chip_smoke.run_ranks("grads", 0, 1, str(tmp_path / "one.npz"),
+                         emulate=mode, **kw)
+    chip_smoke.run_ranks("grads", 2, n_model, str(tmp_path / "two.npz"),
+                         backend="gloo", **kw)
+    ref = dict(np.load(tmp_path / "one.npz"))
+    got = dict(np.load(tmp_path / "two.npz"))
+    errors = chip_smoke.parallel_errors(ref, got)
+    assert errors["loss_rel"] <= 1e-5, errors
+    assert errors["grad"] <= 1e-4, errors
+    assert list(got["split"]) == list(ref["split"])
+    if n_model == 2:
+        assert errors["split_grad"] <= 1e-4, errors
+        assert "encoder.dense.0.weight" in list(got["split"])
+
+
+def test_spring_gradient_at_init_is_set_by_rounding(capsys):
+    """Why the spring cell's ranks are held to one process that does their
+    work rather than to a plain one-process step. At initialization the
+    encoder gives both objects the same position, bitwise, in every frame
+    (the spring cell's separation is exactly 0), and the gradient of the
+    main path's model (float64, B=8 of the tracked file) moves by more
+    than 1e-4 of its largest value when the input moves by 1e-15 and by
+    1e-9, by the same amount at both, while the forward moves in
+    proportion to the input. The backward through a separation of 0
+    amplifies the cotangent's rounding until the per-frame cotangent clip
+    of ops/cells.py bounds it, so that part of the gradient is set by
+    rounding, not by the input."""
+    from paig_reproduction_tpu_torch import cli
+    from paig_reproduction_tpu_torch.models.physics_net import compute_losses
+
+    args = cli.build_parser().parse_args(
+        ["--task=spring_color", "--color", "--autoencoder_loss=3.0",
+         "--device=cpu"])
+    model = cli.build_model(args, 12).double()
+    name = "color_spring_vx8_vy8_sl12_r2_k4_e6.npz"
+    with np.load(os.path.join(REPO, "data", "datasets", "spring_color",
+                              name)) as d:
+        x = torch.from_numpy(d["train_x"][:8]).permute(0, 1, 4, 2, 3)
+    x = x.double() / 255
+    noise = torch.from_numpy(np.random.RandomState(1).randn(*x.shape))
+
+    def run(inp):
+        model.zero_grad(set_to_none=True)
+        out, aux = model(inp)
+        loss, _ = compute_losses(model, inp, out, aux["recons_out"], aux,
+                                 aux_scale=0.0)
+        loss.backward()
+        return aux, {n: p.grad.clone() for n, p in model.named_parameters()
+                     if p.grad is not None}
+
+    aux, grads = run(x)
+    pos = aux["enc_pos"].detach()
+    assert torch.equal(pos[..., :2], pos[..., 2:])
+    largest = max(float(g.abs().max()) for g in grads.values())
+    for eps in (1e-15, 1e-9):
+        aux_p, grads_p = run(x + eps * noise)
+        fwd = float((aux_p["pos_vel_seq"] - aux["pos_vel_seq"]).detach()
+                    .abs().max())
+        moved = max(float((grads_p[n] - g).abs().max())
+                    for n, g in grads.items()) / largest
+        with capsys.disabled():
+            print(f"\ninput moved by {eps:.0e}: rollout moved {fwd:.3e}, "
+                  f"gradient moved {moved:.3e} of its largest "
+                  f"({largest:.3e})")
+        assert fwd < 1e3 * eps and moved > 1e-4
+
+
 @pytest.mark.parametrize("task,input_size,cell", [
     ("spring_color", 32 * 32, "spring_ode_cell"),
     ("3bp_color", 36 * 36, "gravity_ode_cell"),
