@@ -78,10 +78,14 @@ Phases, each printing its elapsed seconds:
                 ``fused step: on (captured CUDA graph)`` (the runtime
                 phase's --debug_nans run: off, by name);
 11. native_loader - the main path's command with --native_loader for 2
-                epochs: finite, falling losses, the steps' batches equal to
-                the port's NativeBatcher at the run's seed, every decode
-                counted (the captured step fed through its static batch
-                buffer);
+                epochs under PAIG_FUSED=0 (the fused path off, so that the
+                loader feeds the step): finite, falling losses, the steps'
+                batches equal to the port's NativeBatcher at the run's seed,
+                every decode counted (the captured step fed through its
+                static batch buffer); then the same command with the fused
+                path on, where the flag changes nothing, as in the JAX
+                trainer: the log says ``fused step: on (captured CUDA
+                graph)`` and no loader is built;
 12. parallel  - DP and TP (--n_model_shards=2) in 2 processes against 1
                 process on the same global batch of spring_color B=100,
                 which computes the ranks' work and adds it in the same
@@ -112,12 +116,31 @@ Phases, each printing its elapsed seconds:
                 --resume_remaining_epochs --epochs=3`` from the ``train``
                 phase's 2-epoch checkpoint must train exactly 1 epoch
                 (counted in its log.txt);
-16. kernels   - one JSON line with every kernel's launches, error, times,
+16. pipeline  - docs/TRAINING.md's training pipeline through the port's
+                offline tools (paig_reproduction_tpu_torch/tools/) at the
+                main path's width, its depth cut: discovery (the main
+                path's command for PIPELINE_EPOCHS epochs from
+                DISCOVERY_SEED; the valid recons must fall), ``fit_physics
+                --write`` on its checkpoint (the fits finite, the
+                checkpoint holding the printed values, the card's encoder
+                positions within PIPELINE_POS_ATOL of the CPU's), the
+                aligned resume (ALIGN_ARGS, 2 epochs: the
+                restored log_k, log_equil and frame_offset are the written
+                ones), ``analyze_tail`` on the sl30 file's 200 test
+                sequences, ``slot_rescue --rescue_slot=auto
+                --set_background=median`` on the tasks phase's 3bp_color
+                checkpoint and a 1-epoch resume with --bg_lr_mult=0 (the
+                background stays the installed median), and ``seed_sweep``
+                over seeds 0 and 1 for 1 epoch. Each stage prints its wall
+                seconds and its decoder launches, which must equal the
+                decodes it made;
+17. kernels   - one JSON line with every kernel's launches, error, times,
                 share of its bound and store-only floor, at the main
                 path's N=1000 and at N=2600, the recipe's launches, each
-                task's launches, the LSTM, bf16, runtime and native-loader
-                runs' launches (graph replays included), the kernel at the
-                tasks' shapes and the graph phase's numbers.
+                task's launches, the LSTM, bf16, runtime, native-loader and
+                pipeline runs' launches (graph replays included), the
+                kernel at the tasks' shapes and the graph phase's
+                numbers.
 
 With ``--parent OLD/csrc/st_decoder.cu`` (an earlier source of the kernel
 whose C entry, ``st_decode_forward``, takes no ``slots`` argument) the
@@ -137,6 +160,7 @@ import atexit
 import copy
 import ctypes
 import glob
+import io
 import json
 import math
 import os
@@ -146,7 +170,7 @@ import subprocess
 import sys
 import tempfile
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, redirect_stdout
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 DATA_DIR = os.path.join(REPO, "data", "datasets")
@@ -265,6 +289,34 @@ PARALLEL_ARGS = TRAIN_ARGS
 # What log.txt says of a run's train step on the card: the fused step,
 # captured as a CUDA graph.
 FUSED_ON = "fused step: on (captured CUDA graph)"
+# The pipeline phase (docs/TRAINING.md's pipeline through the port's tools):
+# the discovery run's epochs (the JAX package's spring discovery had found
+# the objects by epoch 50: runs/spring500/log.txt:136, valid recons 6.74),
+# the aligned resume's extension flags (docs/TRAINING.md's fine-tune), and
+# the card's encoder positions against the CPU's on the same checkpoint and
+# batch: both compute in float32 (TF32 off) and differ in the order of their
+# sums.
+PIPELINE_EPOCHS = 50
+# The discovery run evaluates every 10 epochs (the JAX package's spring500
+# run: every 25), and starts from seed 1. The ShallowUNet ends in a ReLU on
+# the slots' mask logits (the reference's architecture, in both packages):
+# where the final 1x1 conv's output is negative everywhere for every slot
+# at initialization, no gradient reaches the UNet and the slots stay at one
+# position for good. So it is with the port's seeds 0, 2 and 3
+# (tests/test_torch_chip_smoke.py; the pipeline's seed_sweep stage checks
+# seed 0's slots on the card) and the JAX package's seed 3.
+# docs/TRAINING.md picks the discovery seed with seed_sweep; seed 1 is the
+# port's first whose slots live.
+DISCOVERY_EVAL_EVERY = 10
+DISCOVERY_SEED = 1
+ALIGN_ARGS = ["--pos_consistency=1.0", "--vel_anchor=1.0",
+              "--learn_frame_offset"]
+PIPELINE_POS_ATOL = 1e-3
+# The decoded background after the --bg_lr_mult=0 resume against the
+# installed median: the frozen parameters are the written ones bitwise, and
+# the decode's sigmoid of the surgery's float32 logit returns the median
+# (clipped to [1e-3, 1 - 1e-3]) within float32 rounding.
+BACKGROUND_ATOL = 1e-5
 # The tangent's tolerance, relative to its largest value: through the
 # kernel's wrapper the tangent is the plain decode's JVP of the same inputs,
 # so the two differ only where the card's sums run in another order.
@@ -625,13 +677,15 @@ def eval_batches(n, batch_size):
     return 1 if n < 100 else max(1, n // batch_size)
 
 
-def expected_launches(steps, valid_n, test_n, test30_n, batch_size, epochs):
-    """Kernel launches of one CLI run (eval every epoch): two decodes
-    (reconstructions and rollout) per train step, per eval batch and per
-    visualization forward, which follows every valid and test eval: the
-    valid evals before training and after each epoch, the test eval after
-    training and the seq-30 phase's test eval."""
-    valid_evals = 1 + epochs
+def expected_launches(steps, valid_n, test_n, test30_n, batch_size, epochs,
+                      eval_every=1):
+    """Kernel launches of one CLI run (an eval every `eval_every` epochs):
+    two decodes (reconstructions and rollout) per train step, per eval
+    batch and per visualization forward, which follows every valid and test
+    eval: the valid evals before training and after every `eval_every`-th
+    epoch, the test eval after training and the seq-30 phase's test
+    eval."""
+    valid_evals = 1 + epochs // eval_every
     evals = (valid_evals * eval_batches(valid_n, batch_size)
              + eval_batches(test_n, batch_size)
              + eval_batches(test30_n, batch_size))
@@ -1397,19 +1451,19 @@ def graph(eager_spring_ms, batch_size=100):
 
 
 def native_loader(batch_size=100, epochs=2):
-    """The main path's command with --native_loader through the CLI entry:
-    finite, falling losses; the steps' batches equal the port's loader's at
-    the run's seed; every decode counted, replays included. Returns the
+    """The main path's command with --native_loader through the CLI entry,
+    first under PAIG_FUSED=0, where the loader feeds the step: finite,
+    falling losses; the steps' batches equal the port's loader's at the
+    run's seed; every decode counted, replays included. Then with the fused
+    path on, where the JAX trainer builds no loader: the log says FUSED_ON,
+    no batch comes from the loader and every decode is counted. Returns the
     phase's numbers."""
     import torch
     from paig_reproduction_tpu_torch import cli
     from paig_reproduction_tpu_torch.data import native
     from paig_reproduction_tpu_torch.ops.cuda import st_decoder as sd
 
-    save_dir = os.path.join(tempfile.mkdtemp(prefix="paig_native_"), "run")
-    argv = TRAIN_ARGS + [f"--batch_size={batch_size}", f"--epochs={epochs}",
-                         f"--data_dir={DATA_DIR}", f"--save_dir={save_dir}",
-                         "--native_loader"]
+    base = tempfile.mkdtemp(prefix="paig_native_")
     seen = []
     into = native.NativeBatcher.next_batch_into
 
@@ -1417,45 +1471,64 @@ def native_loader(batch_size=100, epochs=2):
         into(self, dst, rows)
         seen.append(dst.clone())
 
-    native.NativeBatcher.next_batch_into = recorded
-    try:
-        with cli_run():
-            sd.LAUNCHES = 0
-            t0 = time.perf_counter()
-            trainer, test_trainer = cli.main(argv)
-            torch.cuda.synchronize()
-            seconds = time.perf_counter() - t0
-            launches = sd.LAUNCHES
-    finally:
-        native.NativeBatcher.next_batch_into = into
-    log_path = os.path.join(save_dir, "log.txt")
-    check_fused_line(log_path, "fused step: off (--native_loader")
-    train_losses, eval_losses, _ = read_log(log_path)
-    if not all(math.isfinite(v) for v in train_losses + eval_losses):
-        raise AssertionError("a logged loss of the native run is not finite")
-    if not train_losses[-1] < train_losses[0]:
-        raise AssertionError("the native run's last train_loss is not below "
-                             "the first")
+    def run(name, fused):
+        save_dir = os.path.join(base, name)
+        argv = TRAIN_ARGS + [f"--batch_size={batch_size}",
+                             f"--epochs={epochs}", f"--data_dir={DATA_DIR}",
+                             f"--save_dir={save_dir}", "--native_loader"]
+        seen.clear()
+        native.NativeBatcher.next_batch_into = recorded
+        try:
+            with cli_run(), fused_env(fused):
+                sd.LAUNCHES = 0
+                t0 = time.perf_counter()
+                trainer, test_trainer = cli.main(argv)
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                launches = sd.LAUNCHES
+        finally:
+            native.NativeBatcher.next_batch_into = into
+        log_path = os.path.join(save_dir, "log.txt")
+        train_losses, eval_losses, _ = read_log(log_path)
+        if not all(math.isfinite(v) for v in train_losses + eval_losses):
+            raise AssertionError(f"a logged loss of the {name} run is not "
+                                 f"finite")
+        if not train_losses[-1] < train_losses[0]:
+            raise AssertionError(f"the {name} run's last train_loss is not "
+                                 f"below the first")
+        needed = expected_launches(
+            trainer.step, trainer.valid_iterator.num_examples,
+            trainer.test_iterator.num_examples,
+            test_trainer.test_iterator.num_examples, batch_size, epochs)
+        print(f"--native_loader ({name}): {seconds:.3f} s wall, "
+              f"{trainer.step} steps, train losses {train_losses[0]:.4f} -> "
+              f"{train_losses[-1]:.4f}; {len(seen)} batches from the "
+              f"loader; st_decode launches {launches} (expected {needed})")
+        if launches != needed:
+            raise AssertionError(f"the {name} run did not decode through "
+                                 f"the kernel on every decode")
+        return trainer, log_path, launches, seconds
+
+    trainer, log_path, launches, seconds = run("PAIG_FUSED=0", "0")
+    check_fused_line(log_path, "fused step: off (PAIG_FUSED=0)")
     ref = native.NativeBatcher(trainer.train_iterator.raw_uint8, batch_size,
                                seed=trainer.seed)
     same = all(torch.equal(b.cpu(), torch.from_numpy(ref.next_batch_x()))
                for b in seen)
     ref.close()
-    needed = expected_launches(
-        trainer.step, trainer.valid_iterator.num_examples,
-        trainer.test_iterator.num_examples,
-        test_trainer.test_iterator.num_examples, batch_size, epochs)
-    print(f"--native_loader: {seconds:.3f} s wall, {trainer.step} steps, "
-          f"train losses {train_losses[0]:.4f} -> {train_losses[-1]:.4f}; "
-          f"{len(seen)} batches equal to NativeBatcher(seed="
-          f"{trainer.seed})'s: {same}; st_decode launches {launches} "
-          f"(expected {needed})")
+    print(f"{len(seen)} batches equal to NativeBatcher(seed={trainer.seed})"
+          f"'s: {same}")
     if not same or len(seen) != trainer.step:
         raise AssertionError("the steps' batches are not the loader's")
-    if launches != needed:
-        raise AssertionError("the native run did not decode through the "
-                             "kernel on every decode")
-    return dict(launches=launches, seconds=seconds)
+
+    _, log_path, fused_launches, fused_seconds = run("fused", None)
+    check_fused_line(log_path)
+    with open(log_path) as f:
+        built = "using native C++ prefetching loader" in f.read()
+    if seen or built:
+        raise AssertionError("the fused run built the native loader")
+    return dict(launches=launches, seconds=seconds,
+                fused_launches=fused_launches, fused_seconds=fused_seconds)
 
 
 # One process of the parallel phase (PARALLEL_ARGS at B=100 on the tracked
@@ -1824,7 +1897,434 @@ def run_task(task, data_dir, batch_size=100):
     print(f"{task}: median train step {step:.2f} ms at B={batch_size}")
     return dict(launches=launches, seconds=seconds, step_ms=step,
                 train_sequences=trainer.train_iterator.num_examples,
-                test_sequences=test_trainer.test_iterator.num_examples)
+                test_sequences=test_trainer.test_iterator.num_examples,
+                save_dir=save_dir)
+
+
+def echoed(fn, *args):
+    """Calls fn(*args), printing what it prints as it would and also
+    returning it: (fn's result, its printed text)."""
+    buf = io.StringIO()
+    try:
+        with redirect_stdout(buf):
+            result = fn(*args)
+    finally:
+        print(buf.getvalue(), end="", flush=True)
+    return result, buf.getvalue()
+
+
+@contextmanager
+def stage(name, stages):
+    """One stage of the pipeline phase: the kernel's launch count set to 0
+    before it and read after it, with its wall seconds, into
+    ``stages[name]``, and printed."""
+    import torch
+    from paig_reproduction_tpu_torch.ops.cuda import st_decoder as sd
+    sd.LAUNCHES = 0
+    t0 = time.perf_counter()
+    yield
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    stages[name] = dict(seconds=time.perf_counter() - t0,
+                        launches=sd.LAUNCHES)
+    print(f"pipeline stage {name}: {stages[name]['seconds']:.3f} s wall, "
+          f"st_decode launches {stages[name]['launches']}", flush=True)
+
+
+def valid_recons(log_path):
+    """{epoch: eval_recons_loss} of a run's ``valid - epoch=`` lines."""
+    out = {}
+    with open(log_path) as f:
+        for line in f:
+            m = re.search(r"valid - epoch=(\d+) .*eval_recons_loss=(\S+)",
+                          line)
+            if m:
+                out[int(m.group(1))] = float(m.group(2))
+    return out
+
+
+def fit_lines(printed):
+    """The numbers fit_physics printed: the offsets and, per fit
+    (``pointwise``, ``trajectory``), its parameters by name."""
+    m = re.search(r"offsets \(image px, per object x,y\): \[([^\]]*)\]",
+                  printed)
+    out = {"offsets": [float(v) for v in m.group(1).split()]}
+    for kind in ("pointwise", "trajectory"):
+        m = re.search(rf"{kind} spring fit: k=(\S+) equil=(\S+) ", printed)
+        out[kind] = {"k": float(m.group(1)), "equil": float(m.group(2))}
+    return out
+
+
+def slot_separation(enc_pos):
+    """Mean distance (px) between the two objects' encoded positions,
+    ``enc_pos`` [..., 4] object-major."""
+    import numpy as np
+    p = enc_pos.reshape(-1, 2, 2)
+    return float(np.linalg.norm(p[:, 0] - p[:, 1], axis=-1).mean())
+
+
+def tool_launches(n_batches, forwards_with_extras=1):
+    """Decoder launches of fit_physics: two decodes (reconstructions and
+    rollout) per encoded batch and per forward with extras (whose extras
+    take the plain decode)."""
+    return 2 * (n_batches + forwards_with_extras)
+
+
+def analyze_tail_launches(n, batch):
+    """Decoder launches of analyze_tail over n sequences: per batch the
+    model's two decodes and the all-frames encoder model's two."""
+    return 4 * -(-n // batch)
+
+
+def sweep_launches(steps, valid_n, test_n, batch_size, epochs):
+    """Decoder launches of one seed_sweep seed (debug: no eval before
+    training; a valid eval every epoch at 1 or 2 epochs): two decodes per
+    train step, per eval batch and per visualization forward after each
+    valid and the test eval."""
+    evals = (epochs * eval_batches(valid_n, batch_size)
+             + eval_batches(test_n, batch_size))
+    return 2 * (steps + evals + epochs + 1)
+
+
+def cli_phase(argv):
+    """One CLI run inside the pipeline: (trainer, test trainer, its
+    save_dir's log.txt), the log's losses finite and its train step the
+    graphed one."""
+    from paig_reproduction_tpu_torch import cli
+    with cli_run():
+        trainer, test_trainer = cli.main(argv)
+    log_path = os.path.join(trainer.save_dir, "log.txt")
+    check_fused_line(log_path)
+    train_losses, eval_losses, _ = read_log(log_path)
+    if not all(math.isfinite(v) for v in train_losses + eval_losses):
+        raise AssertionError(f"a logged loss of {argv} is not finite")
+    return trainer, test_trainer, log_path
+
+
+def pipeline(bp_dir, batch_size=100):
+    """docs/TRAINING.md's pipeline through the port's tools on the card
+    (phase 16 of the module docstring); `bp_dir` holds the tasks phase's
+    3bp_color checkpoint. Returns {stage: {seconds, launches}}."""
+    import logging
+
+    import numpy as np
+    import torch
+    from paig_reproduction_tpu_torch import cli
+    from paig_reproduction_tpu_torch.data.iterators import get_iterators
+    from paig_reproduction_tpu_torch.tools import (
+        analyze_tail,
+        fit_physics,
+        seed_sweep,
+        slot_rescue,
+    )
+    from paig_reproduction_tpu_torch.train import surgery
+    from paig_reproduction_tpu_torch.train.checkpoint import load_checkpoint
+    from paig_reproduction_tpu_torch.train.trainer import Trainer
+
+    base = tempfile.mkdtemp(prefix="paig_pipeline_")
+    stages = {}
+    sl30 = os.path.join(DATA_DIR, cli.TASK_TABLE["spring_color"][1])
+
+    # 1. Discovery: the main path's command for PIPELINE_EPOCHS epochs.
+    disc = os.path.join(base, "discovery")
+    with stage("discovery", stages):
+        trainer, test_trainer, log_path = cli_phase(TRAIN_ARGS + [
+            f"--batch_size={batch_size}", f"--epochs={PIPELINE_EPOCHS}",
+            f"--data_dir={DATA_DIR}", f"--save_dir={disc}",
+            f"--eval_every_n_epochs={DISCOVERY_EVAL_EVERY}",
+            f"--seed={DISCOVERY_SEED}"])
+    recons = valid_recons(log_path)
+    print("discovery valid recons by epoch: " + ", ".join(
+        f"{e}: {r:.3f}" for e, r in sorted(recons.items())))
+    if not recons[PIPELINE_EPOCHS] < recons[0]:
+        raise AssertionError("the discovery run's valid recons did not "
+                             "fall")
+    needed = expected_launches(
+        trainer.step, trainer.valid_iterator.num_examples,
+        trainer.test_iterator.num_examples,
+        test_trainer.test_iterator.num_examples, batch_size,
+        PIPELINE_EPOCHS, eval_every=DISCOVERY_EVAL_EVERY)
+    if stages["discovery"]["launches"] != needed:
+        raise AssertionError(f"discovery: {stages['discovery']['launches']} "
+                             f"launches, expected {needed}")
+    del trainer, test_trainer
+
+    # 2. fit_physics --write on the card.
+    with stage("fit_physics", stages):
+        fitted, printed = echoed(fit_physics.main, [
+            "--task=spring_color", f"--ckpt_dir={disc}",
+            f"--data_dir={DATA_DIR}", "--write", "--device=cuda"])
+    fits = fit_lines(printed)
+    numbers = [v for kind in ("pointwise", "trajectory")
+               for v in fits[kind].values()] + fits["offsets"]
+    if not all(math.isfinite(v) for v in numbers) or not all(
+            np.all(np.isfinite(v)) for v in fitted.values()):
+        raise AssertionError(f"a fit is not finite (the objects have not "
+                             f"separated?): {fits}")
+    written = load_checkpoint(disc)["model"]
+    for name, value in fitted.items():
+        if not np.array_equal(written[name].numpy(), value):
+            raise AssertionError(f"the checkpoint's {name} is not the "
+                                 f"fitted value")
+    traj = fits["trajectory"]
+    for name, key in (("log_k", "k"), ("log_equil", "equil")):
+        if not abs(math.exp(float(fitted[name])) - traj[key]) <= (
+                5e-5 + 1e-6 * traj[key]):
+            raise AssertionError(f"the checkpoint's {name} is not the "
+                                 f"printed {key}={traj[key]}")
+    if not np.abs(fitted["frame_offset"] - np.asarray(
+            fits["offsets"])).max() <= 0.005 + 1e-6:
+        raise AssertionError("the checkpoint's frame_offset is not the "
+                             "printed offsets")
+    needed = tool_launches(8)
+    if stages["fit_physics"]["launches"] != needed:
+        raise AssertionError(f"fit_physics: "
+                             f"{stages['fit_physics']['launches']} "
+                             f"launches, expected {needed}")
+    # The card's encoder positions against the CPU's (not counted).
+    batch = get_iterators(os.path.join(
+        DATA_DIR, cli.TASK_TABLE["spring_color"][0]),
+        conv=True)[0].X[:batch_size]
+    pos = {}
+    for device in ("cuda", "cpu"):
+        model, _ = fit_physics.restore_model("spring_color", disc, device)
+        with torch.no_grad():
+            pos[device] = model(torch.from_numpy(batch).to(device))[1][
+                "enc_pos"].cpu().numpy()
+    pos_err = float(np.abs(pos["cuda"] - pos["cpu"]).max())
+    print(f"fit_physics: k={traj['k']} equil={traj['equil']} offsets "
+          f"{fits['offsets']}; the card's encoder positions against the "
+          f"CPU's on {batch_size} train sequences: {pos_err:.3e} px "
+          f"(tolerance {PIPELINE_POS_ATOL}); the slots "
+          f"{slot_separation(pos['cuda']):.3f} px apart")
+    if not pos_err <= PIPELINE_POS_ATOL:
+        raise AssertionError("the card's encoder positions differ from the "
+                             "CPU's")
+
+    # 3. The aligned resume from the written checkpoint.
+    aligned = os.path.join(base, "aligned")
+    restored = {}
+    init = Trainer.initialize_graph
+
+    def recording(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        if not restored:     # the training phase's trainer restores first
+            restored.update({n: getattr(self.model, n).detach().cpu()
+                             .numpy().copy() for n in fitted})
+
+    Trainer.initialize_graph = recording
+    try:
+        with stage("aligned", stages):
+            trainer, test_trainer, log_path = cli_phase(TRAIN_ARGS + [
+                f"--batch_size={batch_size}", "--epochs=2",
+                f"--data_dir={DATA_DIR}", f"--save_dir={aligned}",
+                "--use_ckpt", f"--ckpt_dir={disc}", *ALIGN_ARGS])
+    finally:
+        Trainer.initialize_graph = init
+    for name, value in fitted.items():
+        if not np.array_equal(restored[name], value):
+            raise AssertionError(f"the aligned resume restored {name}="
+                                 f"{restored[name]}, not the written "
+                                 f"{value}")
+    with open(log_path) as f:
+        steps = len(re.findall(r"train - iter=", f.read()))
+    needed = expected_launches(
+        steps, trainer.valid_iterator.num_examples,
+        trainer.test_iterator.num_examples,
+        test_trainer.test_iterator.num_examples, batch_size, 2)
+    print(f"aligned resume: restored {sorted(restored)} as written; "
+          f"{steps} steps to step {trainer.step}; st_decode launches "
+          f"{stages['aligned']['launches']} (expected {needed})")
+    if stages["aligned"]["launches"] != needed:
+        raise AssertionError("the aligned resume did not decode through "
+                             "the kernel on every decode")
+    del trainer, test_trainer
+
+    # 4. analyze_tail on the aligned checkpoint over the sl30 test split.
+    with stage("analyze_tail", stages):
+        report, printed = echoed(analyze_tail.main, [
+            f"--ckpt_dir={aligned}", "--task=spring_color",
+            f"--data={sl30}", "--device=cuda",
+            f"--out={os.path.join(base, 'tail.npz')}"])
+    parsed = json.loads(printed.split("saved arrays ->")[0])
+    n = parsed["n_sequences"]
+    needed = analyze_tail_launches(n, 50)
+    if parsed != report or n != 200:
+        raise AssertionError(f"analyze_tail's report: {parsed}")
+    if stages["analyze_tail"]["launches"] != needed:
+        raise AssertionError(f"analyze_tail: "
+                             f"{stages['analyze_tail']['launches']} "
+                             f"launches, expected {needed}")
+
+    # 5. slot_rescue on the tasks phase's 3bp_color checkpoint, then a
+    # 1-epoch resume with the background frozen.
+    rescue = os.path.join(base, "rescue")
+    with stage("slot_rescue", stages):
+        echoed(slot_rescue.main, [
+            f"--ckpt_dir={bp_dir}", f"--out_dir={rescue}",
+            "--task=3bp_color", "--rescue_slot=auto",
+            "--set_background=median", f"--data_dir={DATA_DIR}"])
+    if stages["slot_rescue"]["launches"]:
+        raise AssertionError("slot_rescue launched the kernel")
+    written = load_checkpoint(rescue)
+    if set(written) != {"model", "step"} or written["step"] != 0:
+        raise AssertionError(f"slot_rescue wrote {sorted(written)}")
+    notices = []
+    handler = logging.Handler()
+    handler.emit = lambda record: notices.append(record.getMessage())
+    logging.getLogger("paig").addHandler(handler)
+    argv = (["--task=3bp_color", "--print_interval=1", "--device=cuda",
+             "--epochs=1", f"--batch_size={batch_size}",
+             f"--data_dir={DATA_DIR}",
+             f"--save_dir={os.path.join(base, 'rescued')}"]
+            + TASK_RUNS["3bp_color"]["flags"]
+            + ["--use_ckpt", f"--ckpt_dir={rescue}", "--bg_lr_mult=0"])
+    try:
+        with stage("rescue_resume", stages):
+            trainer, test_trainer, log_path = cli_phase(argv)
+    finally:
+        logging.getLogger("paig").removeHandler(handler)
+    if not any(m.startswith("checkpoint restore: ") and "not in checkpoint"
+               in m for m in notices):
+        raise AssertionError("the resume logged no partial-restore notice")
+    bg_names = [n for n in written["model"]
+                if n.startswith("var_net_background.")]
+    frozen = all(torch.equal(trainer.model.state_dict()[n].cpu(),
+                             written["model"][n]) for n in bg_names)
+    with np.load(os.path.join(DATA_DIR, cli.TASK_TABLE["3bp_color"][0])) as d:
+        median = surgery.median_background(d[d.files[0]])
+    with torch.no_grad():
+        bg = torch.sigmoid(trainer.model.var_net_background()).cpu().numpy()
+    bg_err = float(np.abs(bg.reshape(median.shape)
+                          - np.clip(median, 1e-3, 1 - 1e-3)).max())
+    spe = trainer.train_iterator.num_examples // batch_size
+    counts = recipe_counts(
+        log_path, arms=0, arm_epochs=0, loop_epochs=1, steps_per_epoch=spe,
+        valid_batches=eval_batches(trainer.valid_iterator.num_examples,
+                                   batch_size),
+        test_batches=eval_batches(trainer.test_iterator.num_examples,
+                                  batch_size),
+        test30_batches=eval_batches(
+            test_trainer.test_iterator.num_examples, batch_size))
+    needed, _ = recipe_decodes(*counts, refine_iters(argv))
+    print(f"rescue resume (--bg_lr_mult=0): background parameters as "
+          f"written: {frozen}; decoded background against the installed "
+          f"median: {bg_err:.3e} (tolerance {BACKGROUND_ATOL}); st_decode "
+          f"launches {stages['rescue_resume']['launches']} (expected "
+          f"{needed})")
+    if not frozen or not bg_err <= BACKGROUND_ATOL:
+        raise AssertionError("the frozen background moved")
+    if stages["rescue_resume"]["launches"] != needed:
+        raise AssertionError("the rescue resume did not decode through the "
+                             "kernel on every decode")
+    del trainer, test_trainer
+
+    # 6. seed_sweep over seeds 0 and 1, 1 epoch; its trainers log to their
+    # log.txt at INFO, as the CLI's do.
+    sweep = os.path.join(base, "sweep")
+    logger = logging.getLogger("paig")
+    level = logger.level
+    logger.setLevel(logging.INFO)
+    try:
+        with stage("seed_sweep", stages):
+            results, printed = echoed(seed_sweep.main, [
+                "--task=spring_color", "--seeds", "0", "1", "--epochs=1",
+                f"--batch_size={batch_size}", f"--data_dir={DATA_DIR}",
+                f"--save_root={sweep}",
+                f"--out={os.path.join(sweep, 'seed_sweep.json')}",
+                "--device=cuda"])
+    finally:
+        logger.setLevel(level)
+    with open(os.path.join(sweep, "seed_sweep.json")) as f:
+        saved = json.load(f)
+    if sorted(saved) != ["0", "1"] or not re.search(
+            r"^best seed: [01] -> ", printed, re.M):
+        raise AssertionError(f"seed_sweep wrote {saved}")
+    for seed in (0, 1):
+        check_fused_line(os.path.join(sweep, f"spring_color_seed{seed}",
+                                      "log.txt"))
+        if not all(math.isfinite(v) for v in saved[str(seed)].values()):
+            raise AssertionError(f"seed {seed}: {saved[str(seed)]}")
+    with np.load(os.path.join(DATA_DIR,
+                              cli.TASK_TABLE["spring_color"][0])) as d:
+        n_train, n_valid, n_test = (d[k].shape[0] for k in (
+            "train_x", "valid_x", "test_x"))
+    needed = 2 * sweep_launches(n_train // batch_size, n_valid, n_test,
+                                batch_size, 1)
+    if stages["seed_sweep"]["launches"] != needed:
+        raise AssertionError(f"seed_sweep: "
+                             f"{stages['seed_sweep']['launches']} "
+                             f"launches, expected {needed}")
+    # Why discovery starts from DISCOVERY_SEED (not counted): after the
+    # sweep's epoch seed 0's slots are still at one position, its UNet's
+    # final ReLU passing no mask logit; DISCOVERY_SEED's have parted.
+    apart = {}
+    for seed in (0, DISCOVERY_SEED):
+        model, _ = fit_physics.restore_model(
+            "spring_color", os.path.join(sweep, f"spring_color_seed{seed}"),
+            "cuda")
+        with torch.no_grad():
+            apart[seed] = slot_separation(model(torch.from_numpy(batch).to(
+                "cuda"))[1]["enc_pos"].cpu().numpy())
+    print(f"seed_sweep: the slots after 1 epoch, mean over {batch_size} "
+          f"train sequences: seed 0 {apart[0]:.6f} px, seed "
+          f"{DISCOVERY_SEED} {apart[DISCOVERY_SEED]:.6f} px apart")
+    if not (apart[0] == 0 and apart[DISCOVERY_SEED] > 0):
+        raise AssertionError("the discovery seed's slots have not parted, "
+                             "or seed 0's have")
+    print("pipeline: " + "; ".join(
+        f"{k} {v['seconds']:.3f} s, {v['launches']} launches"
+        for k, v in stages.items()))
+    return stages
+
+
+def kernels_line(launches, max_err, timings, jvp, runs):
+    """The contract's ``{"kernels": [...]}`` line: the kernel's launches on
+    the main path, its error, its times at the main path's N=1000 and the
+    seq-30 N=2600 (``timings`` by shape), the ``jvp`` numbers, the other
+    phases' launches (``runs`` by phase: recipe, tasks, lstm, bf16,
+    runtime, native, graph, pipeline) and its times at the tasks'
+    shapes."""
+    main_path = timings[TIMED_SHAPES[0]]
+    seq30 = timings[2600, 32, 16, 2, 3]
+    gr = runs["graph"]
+    return json.dumps({"kernels": [{
+        "name": "st_decode",
+        "route": "cuda",
+        "source": "paig_reproduction_tpu_torch/csrc/st_decoder.cu",
+        "replaces": "paig_reproduction_tpu/ops/pallas/st_decoder.py:115",
+        "launches": launches,
+        "max_abs_err": max_err,
+        "ms": main_path["ms"],
+        "plain_ms": main_path["plain_ms"],
+        "bound_ms": main_path["bound_ms"],
+        "bound_by": main_path["bound_by"],
+        "library_ms": None,
+        "share_of_bound": main_path["share_of_bound"],
+        "store_floor_ms": main_path["store_floor_ms"],
+        "seq30_n2600": {k: seq30[k] for k in (
+            "ms", "plain_ms", "bound_ms", "share_of_bound",
+            "store_floor_ms")},
+        "jvp": jvp,
+        "recipe_launches": runs["recipe"]["launches"],
+        "recipe_refine_launches": runs["recipe"]["refine_launches"],
+        "task_launches": {t: r["launches"]
+                          for t, r in runs["tasks"].items()},
+        "lstm_launches": runs["lstm"]["launches"],
+        "bf16_launches": runs["bf16"]["launches"],
+        "runtime_launches": runs["runtime"]["launches"],
+        "native_loader_launches": runs["native"]["launches"],
+        "native_loader_fused_launches": runs["native"]["fused_launches"],
+        "pipeline_launches": {k: v["launches"]
+                              for k, v in runs["pipeline"].items()},
+        "graph": {"param_rel": gr["param_rel"], "bitwise": gr["bitwise"],
+                  "eval_rel": gr["eval_rel"], "steps": gr["steps"]},
+        "task_shapes": [dict(
+            zip(("n", "img", "tmpl", "objects", "ch"), shape),
+            **{k: timings[shape][k] for k in (
+                "ms", "plain_ms", "bound_ms", "share_of_bound")})
+            for shape in TIMED_SHAPES[3:]],
+    }]})
 
 
 def main(argv=None):
@@ -1910,6 +2410,10 @@ def main(argv=None):
 
     with phase("native_loader"):
         nat = native_loader()
+        print(f"native_loader on {smi}: PAIG_FUSED=0 {nat['seconds']:.3f} "
+              f"s, {nat['launches']} launches; fused "
+              f"{nat['fused_seconds']:.3f} s, {nat['fused_launches']} "
+              f"launches")
 
     with phase("parallel"):
         par = parallel()
@@ -1933,44 +2437,18 @@ def main(argv=None):
     with phase("runtime"):
         rt = runtime(save_dir)
 
+    with phase("pipeline"):
+        pipe = pipeline(tasks["3bp_color"]["save_dir"])
+        print(f"pipeline on {smi}: " + "; ".join(
+            f"{k} {v['seconds']:.3f} s" for k, v in pipe.items()))
+
     with phase("kernels"):
-        main_path = timings[TIMED_SHAPES[0]]
-        seq30 = timings[2600, 32, 16, 2, 3]
-        print(json.dumps({"kernels": [{
-            "name": "st_decode",
-            "route": "cuda",
-            "source": "paig_reproduction_tpu_torch/csrc/st_decoder.cu",
-            "replaces": "paig_reproduction_tpu/ops/pallas/st_decoder.py:115",
-            "launches": launches,
-            "max_abs_err": max_err,
-            "ms": main_path["ms"],
-            "plain_ms": main_path["plain_ms"],
-            "bound_ms": main_path["bound_ms"],
-            "bound_by": main_path["bound_by"],
-            "library_ms": None,
-            "share_of_bound": main_path["share_of_bound"],
-            "store_floor_ms": main_path["store_floor_ms"],
-            "seq30_n2600": {k: seq30[k] for k in (
-                "ms", "plain_ms", "bound_ms", "share_of_bound",
-                "store_floor_ms")},
-            "jvp": {"primal_max_abs_err": jvp_err,
-                    "tangent_max_rel_err": jvp_rel, **jvp_times},
-            "recipe_launches": rec["launches"],
-            "recipe_refine_launches": rec["refine_launches"],
-            "task_launches": {t: r["launches"] for t, r in tasks.items()},
-            "lstm_launches": lstm["launches"],
-            "bf16_launches": bf16["launches"],
-            "runtime_launches": rt["launches"],
-            "native_loader_launches": nat["launches"],
-            "graph": {"param_rel": gr["param_rel"],
-                      "bitwise": gr["bitwise"], "eval_rel": gr["eval_rel"],
-                      "steps": gr["steps"]},
-            "task_shapes": [dict(
-                zip(("n", "img", "tmpl", "objects", "ch"), shape),
-                **{k: timings[shape][k] for k in (
-                    "ms", "plain_ms", "bound_ms", "share_of_bound")})
-                for shape in TIMED_SHAPES[3:]],
-        }]}))
+        print(kernels_line(launches, max_err, timings,
+                           dict(primal_max_abs_err=jvp_err,
+                                tangent_max_rel_err=jvp_rel, **jvp_times),
+                           dict(recipe=rec, tasks=tasks, lstm=lstm,
+                                bf16=bf16, runtime=rt, native=nat, graph=gr,
+                                pipeline=pipe)))
 
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -9,7 +9,7 @@ Several processes (one a card) join one run as the JAX CLI's do, through
 (``parallel/distributed.py``); ``--n_model_shards`` processes hold one copy
 of the model with its TP kernels split (``parallel/mesh.py``).
 ``--native_loader`` feeds the train step from the C++ loader
-(``data/native.py``).
+(``data/native.py``) where the fused step is off, as in the JAX CLI.
 
 A run trains (unless ``--test_mode``), saving ``model.ckpt`` in
 ``--save_dir``, with the single-command recipes as the JAX CLI wires them:

@@ -182,7 +182,7 @@ def gravity_step(params: CellParams, pos: torch.Tensor, vel: torch.Tensor,
 
 
 # Cell registry: name -> (step function, default dt). "lstm" is a
-# model-level cell, not ported yet.
+# model-level cell (models/physics_net.py::_lstm_rollout), not a step here.
 CELLS = {
     "spring_ode_cell": (spring_step, SPRING_DT),
     "bouncing_ode_cell": (bouncing_step, BOUNCING_DT),

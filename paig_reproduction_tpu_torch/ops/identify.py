@@ -9,7 +9,8 @@ A = g*m^2 (a = -A * sum_j d/|d|^3). The trajectory-space fits
 (coarse-to-fine grids, scoring rollouts from finite-difference initial
 velocities against the encoder positions) integrate instead of
 double-differentiating, which would bias the parameters toward zero under
-encoder noise; ``fit_gravity`` is the pointwise fit.
+encoder noise; ``fit_spring`` and ``fit_gravity`` are the pointwise fits,
+which ``tools/fit_physics.py`` reports beside them.
 
 Pure numpy on host arrays.
 """
@@ -56,6 +57,37 @@ def align_slots(enc: np.ndarray, n_objs: int) -> np.ndarray:
         for i in np.nonzero(best)[0]:
             p[i, t] = p[i, t][list(perms[best[i]])]
     return p.reshape(enc.shape)
+
+
+def fit_spring(enc, dt):
+    """enc: [N, T, 4] object-major (x1,y1,x2,y2). Returns (k, equil,
+    residual): the pointwise fit of a_par = -k*norm + 2*k*equil to
+    central-difference accelerations, float64."""
+    p = enc.reshape(enc.shape[0], enc.shape[1], 2, 2)
+    acc = (p[:, 2:] - 2 * p[:, 1:-1] + p[:, :-2]) / dt ** 2  # [N,T-2,2,2]
+    mid = p[:, 1:-1]
+    diff = mid[:, :, 0] - mid[:, :, 1]                       # [N,T-2,2]
+    norm = np.linalg.norm(diff, axis=-1)
+    u = diff / (norm[..., None] + 1e-9)
+    # object 0: a0 = -(k*norm - 2*k*e)*u  ->  a0.u = -k*norm + 2ke
+    a_par0 = np.sum(acc[:, :, 0] * u, axis=-1).ravel()
+    a_par1 = np.sum(acc[:, :, 1] * (-u), axis=-1).ravel()
+    a_par = np.concatenate([a_par0, a_par1])
+    n = np.concatenate([norm.ravel(), norm.ravel()])
+    A = np.stack([-n, np.ones_like(n)], 1)
+    # Robust: trim the outliers once. On an exact fit resid.std() is 0 and
+    # the trim would drop every row (lstsq on no rows gives k=0 and a NaN
+    # equil); the first fit is kept then.
+    coef, *_ = np.linalg.lstsq(A, a_par, rcond=None)
+    resid = A @ coef - a_par
+    keep = np.abs(resid) < 3 * resid.std()
+    if keep.sum() < 2:
+        keep = np.ones_like(keep)
+    coef, *_ = np.linalg.lstsq(A[keep], a_par[keep], rcond=None)
+    k = coef[0]
+    equil = coef[1] / (2 * k) if k > 1e-6 else float("nan")
+    rms = float(np.sqrt(np.mean((A[keep] @ coef - a_par[keep]) ** 2)))
+    return float(k), float(equil), rms
 
 
 def spring_trajectory_error(enc, dt, k, e, input_steps=4, horizon=6,

@@ -60,13 +60,10 @@ def _fits(src, shape):
         src.numel() == 1 and torch.Size(shape).numel() == 1)
 
 
-def restore_checkpoint(restore_dir, model, optimizer=None, piece=None):
-    """Restore ``restore_dir/model.ckpt`` into ``model`` (and
-    ``optimizer``'s state) in place, on their device. ``piece(name,
-    tensor)``, where given, cuts a saved tensor of parameter ``name`` to the
-    slice this process holds (tensor parallelism). Returns the checkpoint's
-    ``step``, ``epoch`` and ``total_epochs_done`` (0 where it lacks one)."""
-    piece = piece or (lambda name, t: t)
+def load_checkpoint(restore_dir) -> dict:
+    """The dict of ``restore_dir/model.ckpt``, its tensors on the CPU.
+    Raises where there is no such file, or where it is a directory (an
+    orbax checkpoint of the JAX package)."""
     path = os.path.abspath(os.path.join(restore_dir, CKPT_NAME))
     if os.path.isdir(path):
         raise ValueError(
@@ -76,7 +73,19 @@ def restore_checkpoint(restore_dir, model, optimizer=None, piece=None):
             "write the result with train.checkpoint.save_checkpoint")
     if not os.path.exists(path):
         raise FileNotFoundError(f"No checkpoint at {path}")
-    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def restore_checkpoint(restore_dir, model, optimizer=None, piece=None):
+    """Restore ``restore_dir/model.ckpt`` into ``model`` (and
+    ``optimizer``'s state) in place, on their device. ``piece(name,
+    tensor)``, where given, cuts a saved tensor of parameter ``name`` to the
+    slice this process holds (tensor parallelism). A checkpoint without
+    optimizer state (``tools/slot_rescue.py`` writes one) leaves the
+    optimizer's state fresh. Returns the checkpoint's ``step``, ``epoch``
+    and ``total_epochs_done`` (0 where it lacks one)."""
+    piece = piece or (lambda name, t: t)
+    ckpt = load_checkpoint(restore_dir)
     missing, shape_skipped, extra = [], [], []
 
     saved = ckpt.get("model", {})

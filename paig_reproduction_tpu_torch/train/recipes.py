@@ -294,26 +294,29 @@ class RecipeMixin:
                 "losses now active (step %d)", self.step)
 
     def _rendered_offsets(self) -> np.ndarray:
-        """Per-slot appearance-centroid offsets in image px (object-major
-        x, y, flat [n_objs*2]): the centroid of each object's own rendered
-        appearance (composited mask x content luminance) minus the encoder
-        position it was rendered at; the median over the frames of the
-        first 8 train sequences."""
-        m = self.model
+        """``rendered_offsets`` over the first 8 train sequences."""
         n = min(8, self.train_iterator.num_examples)
-        bx = self.train_iterator.X[:n]
-        with torch.no_grad():
-            _, aux = m(torch.from_numpy(bx).to(self.device),
-                       with_extras=True)
-        masks = aux["extras"]["transf_masks"].cpu().numpy()    # [F,o+1,H,W]
-        conts = aux["extras"]["transf_contents"].cpu().numpy()  # [F,o,H,W,C]
-        pos_at = aux["enc_pos"].cpu().numpy().reshape(-1, m.n_objs, 2)
-        w = masks[:, :m.n_objs] * conts.mean(axis=-1)           # [F,o,H,W]
-        hh, ww = w.shape[-2:]
-        xs = np.arange(ww, dtype=np.float64) + 0.5
-        ys = np.arange(hh, dtype=np.float64) + 0.5
-        tot = w.sum(axis=(2, 3)) + 1e-9
-        cx = (w.sum(axis=2) * xs).sum(-1) / tot
-        cy = (w.sum(axis=3) * ys).sum(-1) / tot
-        per_frame = np.stack([cx, cy], axis=-1) - pos_at        # [F,o,2]
-        return np.median(per_frame, axis=0).reshape(-1)
+        return rendered_offsets(self.model, self.train_iterator.X[:n],
+                                self.device)
+
+
+def rendered_offsets(model, bx: np.ndarray, device) -> np.ndarray:
+    """Per-slot appearance-centroid offsets in image px (object-major x, y,
+    flat [n_objs*2]): the centroid of each object's own rendered appearance
+    (composited mask x content luminance) minus the encoder position it was
+    rendered at; the median over the frames of the sequences ``bx`` [N, T,
+    C, H, W], run through ``model`` on ``device``."""
+    with torch.no_grad():
+        _, aux = model(torch.from_numpy(bx).to(device), with_extras=True)
+    masks = aux["extras"]["transf_masks"].cpu().numpy()    # [F,o+1,H,W]
+    conts = aux["extras"]["transf_contents"].cpu().numpy()  # [F,o,H,W,C]
+    pos_at = aux["enc_pos"].cpu().numpy().reshape(-1, model.n_objs, 2)
+    w = masks[:, :model.n_objs] * conts.mean(axis=-1)       # [F,o,H,W]
+    hh, ww = w.shape[-2:]
+    xs = np.arange(ww, dtype=np.float64) + 0.5
+    ys = np.arange(hh, dtype=np.float64) + 0.5
+    tot = w.sum(axis=(2, 3)) + 1e-9
+    cx = (w.sum(axis=2) * xs).sum(-1) / tot
+    cy = (w.sum(axis=3) * ys).sum(-1) / tot
+    per_frame = np.stack([cx, cy], axis=-1) - pos_at        # [F,o,2]
+    return np.median(per_frame, axis=0).reshape(-1)

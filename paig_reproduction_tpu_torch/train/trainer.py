@@ -51,13 +51,17 @@ path, shared by ``train_model``, the discovery arms and the evals; with
 directly. A capture on a configuration the predicate admits raises on
 failure: there is no eager fallback.
 
-``--native_loader`` (``data/native.py``) takes the JAX trainer's host path:
-the C++ loader's batches, each fed to the captured step through a static
-batch buffer. Data and tensor parallelism come from the ``mesh``
-(``parallel/mesh.py``): each data rank computes its rows of every global
-batch, the split kernels compute through their model group, and only the
-first process writes the run's files (``log.txt``, code.zip, the checkpoint
-with every split tensor gathered whole, outputs.npz and the visualizations).
+``--native_loader`` (``data/native.py``) takes the JAX trainer's host path
+where the fused path is off, as the JAX trainer builds its loader only
+then: the C++ loader's batches, each fed to the captured step through a
+static batch buffer. Where the fused path is on, the flag changes nothing:
+the chunks gather their batches on the device.
+
+Data and tensor parallelism come from the ``mesh`` (``parallel/mesh.py``):
+each data rank computes its rows of every global batch, the split kernels
+compute through their model group, and only the first process writes the
+run's files (``log.txt``, code.zip, the checkpoint with every split tensor
+gathered whole, outputs.npz and the visualizations).
 """
 from __future__ import annotations
 
@@ -522,8 +526,6 @@ class Trainer(RecipeMixin):
           chunk calls the step body directly, uncaptured);
         * ``--debug_nans``: anomaly mode and the NaN checks read values on
           the host at every operation, which a capture forbids;
-        * ``--native_loader`` (train): its batches come from the host, fed
-          to the captured step one at a time instead;
         * a ``gloo`` process group on the card: gloo's collectives run on
           the host and cannot be captured;
         * a split without its uint8 frames, or with fewer sequences than a
@@ -538,8 +540,6 @@ class Trainer(RecipeMixin):
         reason = self._capture_off_reason()
         if reason:
             return reason
-        if type == "train" and self.native_loader:
-            return "--native_loader feeds host batches to the captured step"
         it = self.get_iterator(type)
         if getattr(it, "raw_uint8", None) is None:
             return f"the {type} split has no uint8 frames"
@@ -730,8 +730,11 @@ class Trainer(RecipeMixin):
                 (0, float(valid["eval_recons_loss"])))
 
         fused = epochs > 0 and self._fused_train(batch_size)
+        # The C++ loader feeds the step only where the chunks do not, as in
+        # the JAX trainer.
         native = (self._make_native(batch_size)
-                  if epochs > 0 and self.native_loader else None)
+                  if epochs > 0 and self.native_loader and not fused
+                  else None)
         chunk_k = self._chunk_len(print_interval)
         # The deferred drain: each chunk's [K, 4] losses stay on the device,
         # (device losses, first step, steps); they are fetched, in one copy,

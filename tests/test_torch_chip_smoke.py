@@ -346,3 +346,196 @@ def test_graph_and_parallel_configs_are_the_cli_flags():
     assert parser.parse_args(chip_smoke.GRAPH_CONFIGS["lstm"]).cell_type \
         == "lstm"
     assert chip_smoke.PARALLEL_ARGS == chip_smoke.TRAIN_ARGS
+
+
+@pytest.fixture
+def one_thread():
+    """One intra-op thread for a test's small models: more threads run
+    them no faster, and beside the suite's other workers they contend."""
+    import torch
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _run_cli(argv):
+    import logging
+
+    from paig_reproduction_tpu_torch import cli
+
+    logger = logging.getLogger("paig")
+    handlers = list(logger.handlers)
+    try:
+        return cli.main(argv)
+    finally:
+        for h in set(logger.handlers) - set(handlers):
+            logger.removeHandler(h)
+            h.close()
+
+
+def test_pipeline_helpers_count_and_parse_the_tools(tmp_path, monkeypatch,
+                                                    one_thread):
+    """The pipeline phase's helpers on the tools' own output, tiny on the
+    CPU (16 train, 4 valid and 4 test sequences, B=4): a discovery run's
+    valid recons by epoch; fit_physics's printed numbers (the checkpoint
+    holding them) and its launches (tool_launches); analyze_tail's report
+    and launches (analyze_tail_launches); seed_sweep's launches
+    (sweep_launches); each counted as calls of the kernel's wrapper inside
+    chip_smoke.stage."""
+    import json
+
+    import numpy as np
+
+    from paig_reproduction_tpu_torch.tools import (
+        analyze_tail,
+        fit_physics,
+        seed_sweep,
+    )
+    from paig_reproduction_tpu_torch.train.checkpoint import load_checkpoint
+
+    _tiny_data(tmp_path, n_train=16)
+    calls = []
+    fused = tkernel.st_decode_fused
+
+    def counted(*a):
+        tkernel.LAUNCHES += 1
+        return fused(*a)
+
+    monkeypatch.setattr(tkernel, "st_decode_fused", counted)
+    monkeypatch.setenv("PAIG_VIZ_EXAMPLES", "1")
+    argv = [a for a in chip_smoke.TRAIN_ARGS if a != "--device=cuda"]
+    disc = tmp_path / "disc"
+    stages = {}
+    with chip_smoke.stage("discovery", stages):
+        trainer, _ = _run_cli(argv + [
+            "--batch_size=4", "--epochs=4", "--print_interval=4",
+            "--eval_every_n_epochs=2", f"--data_dir={tmp_path}",
+            f"--save_dir={disc}", "--device=cpu"])
+    recons = chip_smoke.valid_recons(disc / "log.txt")
+    assert sorted(recons) == [0, 2, 4]
+    assert all(np.isfinite(list(recons.values())))
+    assert stages["discovery"]["launches"] == chip_smoke.expected_launches(
+        trainer.step, 4, 4, 4, batch_size=4, epochs=4, eval_every=2) == 52
+
+    with chip_smoke.stage("fit_physics", stages):
+        fitted, printed = chip_smoke.echoed(fit_physics.main, [
+            "--task=spring_color", f"--ckpt_dir={disc}",
+            f"--data_dir={tmp_path}", "--write", "--device=cpu"])
+    fits = chip_smoke.fit_lines(printed)
+    assert stages["fit_physics"]["launches"] == chip_smoke.tool_launches(8)
+    assert stages["fit_physics"]["seconds"] > 0
+    np.testing.assert_allclose(fitted["frame_offset"], fits["offsets"],
+                               rtol=0, atol=0.005 + 1e-6)
+    assert abs(np.exp(fitted["log_k"]) - fits["trajectory"]["k"]) <= 5e-5
+    written = load_checkpoint(str(disc))["model"]
+    np.testing.assert_array_equal(written["log_equil"].numpy(),
+                                  fitted["log_equil"])
+    assert set(fits["pointwise"]) == {"k", "equil"}
+
+    data = tmp_path / "spring_color" / "color_spring_vx8_vy8_sl30_r2_k4_e6.npz"
+    with chip_smoke.stage("analyze_tail", stages):
+        report, printed = chip_smoke.echoed(analyze_tail.main, [
+            f"--ckpt_dir={disc}", f"--data={data}", "--batch=3",
+            f"--out={tmp_path / 'tail.npz'}", "--device=cpu"])
+    assert json.loads(printed.split("saved arrays ->")[0]) == report
+    assert report["n_sequences"] == 4
+    assert stages["analyze_tail"]["launches"] == \
+        chip_smoke.analyze_tail_launches(4, 3) == 8
+
+    with chip_smoke.stage("seed_sweep", stages):
+        _, printed = chip_smoke.echoed(seed_sweep.main, [
+            "--task=spring_color", "--seeds", "0", "1", "--epochs=1",
+            "--batch_size=4", f"--data_dir={tmp_path}",
+            f"--save_root={tmp_path / 'sweep'}",
+            f"--out={tmp_path / 'sweep.json'}", "--device=cpu"])
+    assert "best seed: " in printed
+    assert stages["seed_sweep"]["launches"] == 2 * chip_smoke.sweep_launches(
+        4, 4, 4, batch_size=4, epochs=1) == 2 * 16
+
+
+def test_slot_separation():
+    import numpy as np
+
+    enc = np.zeros((2, 3, 4))
+    enc[..., 2:] = [3.0, 4.0]
+    assert chip_smoke.slot_separation(enc) == 5.0
+    enc[1, :, 2:] = 0.0
+    assert chip_smoke.slot_separation(enc) == 2.5
+    assert chip_smoke.slot_separation(np.ones((5, 10, 4))) == 0.0
+
+
+def test_kernels_line_has_every_phase(capsys):
+    """The kernels line of made-up numbers: the contract's keys, and the
+    launches of every phase, the native loader's fused run's and the
+    pipeline's stages included."""
+    import json
+
+    timing = dict(ms=1.0, plain_ms=2.0, bound_ms=0.5, bound_by="bytes",
+                  share_of_bound=0.5, store_floor_ms=0.7)
+    timings = {shape: timing for shape in chip_smoke.TIMED_SHAPES}
+    runs = dict(
+        recipe=dict(launches=442, refine_launches=128),
+        tasks={"3bp_color": dict(launches=72)}, lstm=dict(launches=130),
+        bf16=dict(launches=130), runtime=dict(launches=30),
+        native=dict(launches=130, fused_launches=130),
+        graph=dict(param_rel=0.0, bitwise=True, eval_rel=0.0, steps={}),
+        pipeline={"discovery": dict(seconds=1.0, launches=2818),
+                  "slot_rescue": dict(seconds=1.0, launches=0)})
+    line = chip_smoke.kernels_line(130, 5e-6, timings, {"jvp_ms": 1.0}, runs)
+    assert "\n" not in line
+    (kernel,) = json.loads(line)["kernels"]
+    for key in ("name", "route", "source", "replaces", "launches",
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms"):
+        assert key in kernel
+    assert kernel["route"] == "cuda" and kernel["launches"] == 130
+    assert kernel["pipeline_launches"] == {"discovery": 2818,
+                                           "slot_rescue": 0}
+    assert kernel["native_loader_fused_launches"] == 130
+    assert kernel["task_launches"] == {"3bp_color": 72}
+
+
+def test_pipeline_flags_are_the_cli_flags():
+    """The aligned resume's flags parse with the CLI's and are
+    docs/TRAINING.md's fine-tune extensions."""
+    from paig_reproduction_tpu_torch import cli
+
+    args = cli.build_parser().parse_args(chip_smoke.TRAIN_ARGS
+                                         + chip_smoke.ALIGN_ARGS)
+    assert (args.pos_consistency, args.vel_anchor,
+            args.learn_frame_offset) == (1.0, 1.0, True)
+    assert chip_smoke.PIPELINE_EPOCHS == 50
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_discovery_seed_has_live_slots(seed):
+    """Why the discovery run starts from DISCOVERY_SEED: the ShallowUNet's
+    final ReLU passes no slot's mask logit at initialization for seeds 0, 2
+    and 3 of the main path's model (the final 1x1 conv's output is negative
+    at every pixel of 20 train sequences), so no gradient reaches the UNet
+    and the slots never part; at DISCOVERY_SEED each slot's logit is
+    positive somewhere."""
+    import numpy as np
+    import torch
+
+    from paig_reproduction_tpu_torch import cli
+
+    args = cli.build_parser().parse_args(
+        [a for a in chip_smoke.TRAIN_ARGS if a != "--device=cuda"]
+        + ["--device=cpu", f"--seed={seed}"])
+    unet = cli.build_model(args, 12).encoder.unet
+    name = "color_spring_vx8_vy8_sl12_r2_k4_e6.npz"
+    with np.load(os.path.join(chip_smoke.DATA_DIR, "spring_color",
+                              name)) as d:
+        x = torch.from_numpy(d["train_x"][:20, :10]).permute(0, 1, 4, 2, 3)
+    seen = {}
+    unet.convs[-1].register_forward_hook(
+        lambda m, i, out: seen.setdefault("logits", out))
+    with torch.no_grad():
+        unet(x.reshape(200, 3, 32, 32).float() / 255)
+    live = (seen["logits"] > 0).flatten(2).any(-1).any(0)   # per slot
+    if seed == chip_smoke.DISCOVERY_SEED:
+        assert live.all()
+    else:
+        assert not live.any()

@@ -2,8 +2,11 @@
 source) against the JAX package's ``NativeBatcher``, built with
 ``native/build.sh`` into a temporary directory: the same batches and epoch
 counts at the same seed; the refusal of a batch larger than the split; rows
-copied into a tensor; and ``--native_loader`` through the CLI on the CPU,
-whose steps consume the loader's batches at the run's seed.
+copied into a tensor; and ``--native_loader`` through the CLI on the CPU:
+with the fused path off (``PAIG_FUSED=0``) the steps consume the loader's
+batches at the run's seed, and with it on (``PAIG_FUSED=1``) the flag
+changes nothing, as in the JAX trainer, which builds its loader only where
+its fused chunk is off.
 
 Tolerance: none; the batches are compared exactly.
 """
@@ -72,17 +75,45 @@ def test_next_batch_into_copies_rows():
         np.testing.assert_array_equal(dst.numpy(), b.next_batch_x()[2:4])
 
 
-def test_cli_trains_from_the_native_loader(tmp_path, monkeypatch):
-    """--native_loader, 2 epochs at B=4 on 8 sequences: finite losses that
-    fall, and the steps' batches are the loader's at the run's seed."""
+@pytest.fixture
+def one_thread():
+    """One intra-op thread for a test's small models: more threads run
+    them no faster, and beside the suite's other workers they contend."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _tiny_spring(tmp_path, n_train=8):
     src = os.path.join(REPO, "data", "datasets", "spring_color")
     (tmp_path / "spring_color").mkdir()
-    for name, n in (("color_spring_vx8_vy8_sl12_r2_k4_e6.npz", 8),
+    for name, n in (("color_spring_vx8_vy8_sl12_r2_k4_e6.npz", n_train),
                     ("color_spring_vx8_vy8_sl30_r2_k4_e6.npz", 4)):
         with np.load(os.path.join(src, name)) as d:
             np.savez(tmp_path / "spring_color" / name,
                      train_x=d["train_x"][:n], valid_x=d["valid_x"][:4],
                      test_x=d["test_x"][:4])
+
+
+def _run_cli(argv):
+    """cli.main(argv), with the log handlers it adds removed after it."""
+    logger = logging.getLogger("paig")
+    handlers = list(logger.handlers)
+    try:
+        return cli.main(argv)
+    finally:
+        for h in set(logger.handlers) - set(handlers):
+            logger.removeHandler(h)
+            h.close()
+
+
+def test_cli_trains_from_the_native_loader(tmp_path, monkeypatch,
+                                           one_thread):
+    """--native_loader with the fused path off (PAIG_FUSED=0), 2 epochs at
+    B=4 on 8 sequences: finite losses that fall, and the steps' batches are
+    the loader's at the run's seed."""
+    _tiny_spring(tmp_path)
     seen = []
     into = native.NativeBatcher.next_batch_into
 
@@ -92,20 +123,15 @@ def test_cli_trains_from_the_native_loader(tmp_path, monkeypatch):
 
     monkeypatch.setattr(native.NativeBatcher, "next_batch_into", recorded)
     monkeypatch.setenv("PAIG_VIZ_EXAMPLES", "1")
-    logger = logging.getLogger("paig")
-    handlers = list(logger.handlers)
+    monkeypatch.setenv("PAIG_FUSED", "0")
     save_dir = tmp_path / "run"
-    try:
-        trainer, _ = cli.main([
-            "--task=spring_color", "--color", "--autoencoder_loss=3.0",
-            "--batch_size=4", "--epochs=2", "--print_interval=1",
-            "--native_loader", "--seed=3", f"--data_dir={tmp_path}",
-            f"--save_dir={save_dir}", "--device=cpu"])
-    finally:
-        for h in set(logger.handlers) - set(handlers):
-            logger.removeHandler(h)
-            h.close()
+    trainer, _ = _run_cli([
+        "--task=spring_color", "--color", "--autoencoder_loss=3.0",
+        "--batch_size=4", "--epochs=2", "--print_interval=1",
+        "--native_loader", "--seed=3", f"--data_dir={tmp_path}",
+        f"--save_dir={save_dir}", "--device=cpu"])
     log = (save_dir / "log.txt").read_text()
+    assert "fused step: off (PAIG_FUSED=0)" in log
     assert "using native C++ prefetching loader" in log
     losses = [float(line.split("train_loss=")[1])
               for line in log.splitlines() if "train - iter=" in line]
@@ -115,3 +141,33 @@ def test_cli_trains_from_the_native_loader(tmp_path, monkeypatch):
     assert len(seen) == 4
     for batch in seen:
         np.testing.assert_array_equal(batch.numpy(), ref.next_batch_x())
+
+
+def test_native_loader_leaves_the_fused_step_on(tmp_path, monkeypatch,
+                                                one_thread):
+    """With the fused path on (PAIG_FUSED=1, the chunk code on the CPU), a
+    2-epoch run at B=8 with --native_loader logs the same ``train - iter=``
+    lines as the same run without the flag, and builds no loader: the JAX
+    trainer builds its loader only where its fused chunk is off."""
+    _tiny_spring(tmp_path, n_train=16)
+    built = []
+    monkeypatch.setattr(native.NativeBatcher, "__init__",
+                        lambda *a, **k: built.append(1))
+    monkeypatch.setenv("PAIG_VIZ_EXAMPLES", "1")
+    monkeypatch.setenv("PAIG_FUSED", "1")
+    lines = {}
+    for flag in ("", "--native_loader"):
+        save_dir = tmp_path / f"run{flag}"
+        _run_cli([
+            "--task=spring_color", "--color", "--autoencoder_loss=3.0",
+            "--batch_size=8", "--epochs=2", "--print_interval=1",
+            "--seed=3", f"--data_dir={tmp_path}", f"--save_dir={save_dir}",
+            "--device=cpu"] + ([flag] if flag else []))
+        log = (save_dir / "log.txt").read_text()
+        assert "fused step: on (the step body called directly)" in log
+        assert "using native C++ prefetching loader" not in log
+        lines[flag] = [line.split(" - paig - ")[1] for line in
+                       log.splitlines() if " - paig - train - iter=" in line]
+    assert len(lines[""]) == 4
+    assert lines["--native_loader"] == lines[""]
+    assert not built
