@@ -352,19 +352,24 @@ TASK_TABLE = {
 def epochs_to_train(epochs, epochs_done, resume_remaining):
     """The epochs a run trains: ``--epochs``, or with
     ``--resume_remaining_epochs`` what the checkpoint chain's
-    ``epochs_done`` leaves of them, at least one (as the JAX CLI counts)."""
+    ``epochs_done`` leaves of them, at least one (as the JAX CLI counts).
+    The chain's epochs include its discovery arms', which count against
+    ``--epochs``: a deliberate departure from the JAX CLI, which leaves
+    them out, so that a resumed recipe run trains the arms' epochs once
+    more. Nothing else of a resume departs: a rescue after it sizes its
+    schedule as the JAX trainer's does."""
     return max(1, epochs - epochs_done) if resume_remaining else epochs
 
 
 def build_model(args, seq_len):
     """The model of the parsed flags ``args`` for ``args.task`` at sequence
-    length ``seq_len``, its weights drawn from ``--seed``."""
-    import torch
-
+    length ``seq_len``, with the JAX package's initial weights at ``--seed``
+    (``models/jax_init.py``)."""
+    from paig_reproduction_tpu_torch.models import jax_init
     from paig_reproduction_tpu_torch.models.registry import get_model
     (_, _, cell_type, _, _, input_steps, pred_steps,
      input_size) = TASK_TABLE[args.task]
-    return get_model(args.model)(
+    model = get_model(args.model)(
         task=args.task, recurrent_units=args.recurrent_units,
         lstm_layers=args.lstm_layers,
         cell_type=args.cell_type if args.cell_type else cell_type,
@@ -374,7 +379,6 @@ def build_model(args, seq_len):
         encoder_type=args.encoder_type, decoder_type=args.decoder_type,
         decoder_backend=args.decoder_backend,
         cell_substeps=args.cell_substeps,
-        generator=torch.Generator().manual_seed(args.seed),
         template_center_loss=args.template_center_loss,
         coarse_loss=args.coarse_loss, vel_anchor=args.vel_anchor,
         pos_consistency=args.pos_consistency,
@@ -389,6 +393,7 @@ def build_model(args, seq_len):
         template_init=args.template_init,
         reference_quirks=args.reference_quirks,
         compute_dtype=args.compute_dtype)
+    return jax_init.load_initial_state(model, jax_init.prng_key(args.seed))
 
 
 def main(argv=None):
@@ -468,11 +473,11 @@ def main(argv=None):
         trainer.initialize_graph(args.save_dir, args.use_ckpt,
                                  args.ckpt_dir)
         resume = args.use_ckpt and args.resume_remaining_epochs
-        remaining = epochs_to_train(args.epochs, trainer._epoch_base, resume)
-        if resume and trainer._epoch_base:
+        done = trainer._chain_epochs
+        remaining = epochs_to_train(args.epochs, done, resume)
+        if resume and done:
             logger.info("resume_remaining_epochs: checkpoint chain has %d "
-                        "epochs done, training %d more",
-                        trainer._epoch_base, remaining)
+                        "epochs done, training %d more", done, remaining)
         if args.discovery_restarts > 0 and not args.use_ckpt:
             # Counted against --epochs, leaving at least one normal epoch
             # (and its final save).

@@ -10,7 +10,9 @@ file and the longer test file) under ``--out_dir``, e.g.::
 
 ``--test_train`` / ``--test_valid`` / ``--test_test`` size the longer file
 apart (default: the same counts), since its sequences cost more: only its
-test split is read, by the test phase.
+test split is read, by the test phase. The two files are written at once,
+each in a process of its own (each file seeds its own stream, so the bytes
+are those of one process).
 """
 from __future__ import annotations
 
@@ -74,23 +76,35 @@ def presets():
     }
 
 
+def _write_file(task, dest, fn, kwargs, n_train, n_valid, n_test):
+    print(f"[{task}] generating {dest}")
+    t0 = time.perf_counter()
+    fn(dest, train_set_size=n_train, valid_set_size=n_valid,
+       test_set_size=n_test, **kwargs)
+    print(f"[{task}] {n_train}/{n_valid}/{n_test} sequences of "
+          f"{kwargs['seq_len']} frames in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+
 def generate(task, out_dir, sizes, test_sizes=None):
     """Write `task`'s two files under out_dir: the train-length file with
     `sizes` = (train, valid, test) sequences and the test file with
-    `test_sizes` (default `sizes`). Returns their paths."""
-    paths = []
-    for (rel, fn, kwargs), (n_train, n_valid, n_test) in zip(
-            presets()[task], (sizes, test_sizes or sizes)):
-        dest = os.path.join(out_dir, rel)
-        print(f"[{task}] generating {dest}")
-        t0 = time.perf_counter()
-        fn(dest, train_set_size=n_train, valid_set_size=n_valid,
-           test_set_size=n_test, **kwargs)
-        print(f"[{task}] {n_train}/{n_valid}/{n_test} sequences of "
-              f"{kwargs['seq_len']} frames in {time.perf_counter() - t0:.1f}"
-              f" s")
-        paths.append(dest)
-    return paths
+    `test_sizes` (default `sizes`), each in a forked process of its own.
+    Returns their paths."""
+    import multiprocessing
+    jobs = [(task, os.path.join(out_dir, rel), fn, kwargs, *n)
+            for (rel, fn, kwargs), n in zip(presets()[task],
+                                            (sizes, test_sizes or sizes))]
+    procs = [multiprocessing.get_context("fork").Process(
+        target=_write_file, args=job) for job in jobs]
+    for proc in procs:
+        proc.start()
+    for proc in procs:
+        proc.join()
+    failed = [job[1] for job, proc in zip(jobs, procs) if proc.exitcode]
+    if failed:
+        raise RuntimeError(f"generating {failed} failed")
+    return [job[1] for job in jobs]
 
 
 def main(argv=None):

@@ -40,11 +40,18 @@ from paig_reproduction_tpu_torch.utils.viz import gallery, write_jpeg
 
 
 def _disk(shape, r0, c0, radius):
-    """Row/col index arrays of the pixels strictly inside the disk."""
-    rr = np.arange(shape[0])[:, None]
-    cc = np.arange(shape[1])[None, :]
+    """Row/col index arrays of the pixels strictly inside the disk, in row
+    order (tested over its bounding box only: no pixel outside it is
+    inside)."""
+    r_lo = max(0, int(np.floor(r0 - radius)))
+    c_lo = max(0, int(np.floor(c0 - radius)))
+    rr = np.arange(r_lo, max(r_lo, min(shape[0], int(np.ceil(
+        r0 + radius)) + 1)))[:, None]
+    cc = np.arange(c_lo, max(c_lo, min(shape[1], int(np.ceil(
+        c0 + radius)) + 1)))[None, :]
     mask = (rr - r0) ** 2 + (cc - c0) ** 2 < radius ** 2
-    return np.nonzero(mask)
+    rows, cols = np.nonzero(mask)
+    return rows + r_lo, cols + c_lo
 
 
 def _box_downscale(frame: np.ndarray, factor: int) -> np.ndarray:
@@ -154,17 +161,23 @@ def _render_balls(poss, radius, img_size, scale, color, background=None):
     return (frame * 255).astype(np.uint8)
 
 
-def _cifar_background(scaled_img_size, rng, color=False):
-    """A darkened CIFAR image (grey unless `color`) blown up to the
-    supersampled canvas; draws one index from `rng`."""
-    imgs = load_cifar_images()
-    img = imgs[rng.randint(len(imgs))].astype(np.float32)
+def _cifar_image(img, scaled_img_size, color=False):
+    """A darkened CIFAR image ``img`` [32, 32, 3] (grey unless `color`)
+    blown up to the supersampled canvas."""
+    img = img.astype(np.float32)
     if not color:
         gray = np.dot(img[..., :3], [0.299, 0.587, 0.114]) / 255.0
         gray = _bilinear_resize(gray, scaled_img_size)
         return np.clip(gray - 0.2, 0.0, 1.0)
     rgb = _bilinear_resize(img / 255.0, scaled_img_size)
     return np.clip(rgb - 0.2, 0.0, 1.0)
+
+
+def _cifar_background(scaled_img_size, rng, color=False):
+    """``_cifar_image`` of a CIFAR image whose index it draws from
+    `rng`."""
+    imgs = load_cifar_images()
+    return _cifar_image(imgs[rng.randint(len(imgs))], scaled_img_size, color)
 
 
 def _generate(generate_sequence, total):
@@ -309,49 +322,114 @@ def generate_falling_bouncing_ball_dataset(
                   valid_set_size)
 
 
+def _spring_trajectory(seq_len, img_size, radius, wall_radius, equil, k,
+                       dt, ode_steps, vx0_max, vy0_max, draw=None):
+    """One spring sequence's ball positions [seq_len, 2, 2], rejection-
+    sampled until no ball touches a wall (at ``wall_radius``) over the
+    sequence and the ``ode_steps`` substeps after its last frame; with
+    ``draw``, what it drew from the global stream after each attempt's
+    start (the attempt's background), else None. The stream is drawn in
+    the order of a generator that renders each frame as it goes: rendering
+    draws nothing, so the frames can be rendered afterwards."""
+    while True:
+        poss, vels = _spring_start(img_size, radius, equil, vx0_max,
+                                   vy0_max)
+        drawn = draw() if draw is not None else None
+        frames = []
+        collision = False
+        for _ in range(seq_len):
+            frames.append(np.array(poss, dtype=np.float64))
+            for _ in range(ode_steps):
+                poss, vels = numpy_generator_spring(
+                    poss, vels, k, equil, dt / ode_steps, 1)
+                collision = (
+                    verify_wall_collision(poss[0], vels[0], wall_radius,
+                                          img_size)
+                    or verify_wall_collision(poss[1], vels[1], wall_radius,
+                                             img_size))
+                if collision:
+                    break
+            if collision:
+                break
+        if not collision:
+            return np.stack(frames), drawn
+
+
+def _trajectories(total, **kwargs):
+    """``total`` accepted ``_spring_trajectory``s in stream order: (their
+    positions [total, seq_len, 2, 2], what each drew)."""
+    trajs, drawn = [], []
+    for i in range(total):
+        if i % 100 == 0:
+            print(i)
+        t, d = _spring_trajectory(**kwargs)
+        trajs.append(t)
+        drawn.append(d)
+    return np.stack(trajs), drawn
+
+
+# The sequence renderer and its inputs, set before the worker processes
+# fork (they inherit it) and cleared after.
+_RENDER_JOB = None
+
+
+def _render_range(bounds):
+    render, trajs, drawn = _RENDER_JOB
+    lo, hi = bounds
+    return np.stack([render(trajs[i], drawn[i]) for i in range(lo, hi)])
+
+
+def _render_all(render, trajs, drawn):
+    """``render(positions, drawn)`` -> uint8 frames of every sequence, in
+    order, as one array, over one forked process per CPU (the frames are
+    those of one process: rendering is a pure function of its
+    arguments)."""
+    global _RENDER_JOB
+    import multiprocessing
+    workers = os.cpu_count() or 1
+    n = len(trajs)
+    step = max(1, -(-n // (4 * workers)))
+    bounds = [(lo, min(n, lo + step)) for lo in range(0, n, step)]
+    _RENDER_JOB = (render, trajs, drawn)
+    try:
+        with multiprocessing.get_context("fork").Pool(workers) as pool:
+            parts = pool.map(_render_range, bounds)
+    finally:
+        _RENDER_JOB = None
+    return np.concatenate(parts)
+
+
 def generate_spring_balls_dataset(
         dest, train_set_size, valid_set_size, test_set_size, seq_len,
         img_size=None, radius=3, dt=0.3, k=3, equil=5, vx0_max=0.0,
         vy0_max=0.0, color=False, cifar_background=False, ode_steps=10,
         seed=0):
     """Two balls on a Hooke's-law spring; initial conditions are
-    rejection-sampled until no wall collision occurs over the sequence."""
+    rejection-sampled until no wall collision occurs over the sequence.
+    The trajectories are drawn first and the accepted ones rendered after,
+    over one process per CPU."""
     np.random.seed(seed)
     rng = np.random
     if img_size is None:
         img_size = [32, 32]
     scale = 10
     scaled = [img_size[0] * scale, img_size[1] * scale]
+    imgs = load_cifar_images() if cifar_background else None
 
-    def generate_sequence():
-        collision = True
-        while collision:
-            seq = []
-            poss, vels = _spring_start(img_size, radius, equil, vx0_max,
-                                       vy0_max)
-            bg = (_cifar_background(scaled, rng)
-                  if cifar_background else None)
-            collision = False
-            for _ in range(seq_len):
-                seq.append(_render_balls(poss, radius, img_size, scale,
-                                         color, bg))
-                for _ in range(ode_steps):
-                    poss, vels = numpy_generator_spring(
-                        poss, vels, k, equil, dt / ode_steps, 1)
-                    collision = (
-                        verify_wall_collision(poss[0], vels[0], radius,
-                                              img_size)
-                        or verify_wall_collision(poss[1], vels[1], radius,
-                                                 img_size))
-                    if collision:
-                        break
-                if collision:
-                    break
-        return seq
+    def render(traj, bg_index):
+        bg = (_cifar_image(imgs[bg_index], scaled)
+              if bg_index is not None else None)
+        return np.stack([_render_balls(p, radius, img_size, scale, color,
+                                       bg) for p in traj])
 
     total = train_set_size + valid_set_size + test_set_size
-    _save_dataset(dest, _generate(generate_sequence, total), train_set_size,
-                  valid_set_size)
+    trajs, drawn = _trajectories(
+        total, seq_len=seq_len, img_size=img_size, radius=radius,
+        wall_radius=radius, equil=equil, k=k, dt=dt, ode_steps=ode_steps,
+        vx0_max=vx0_max, vy0_max=vy0_max,
+        draw=(lambda: rng.randint(len(imgs))) if cifar_background else None)
+    _save_dataset(dest, _render_all(render, trajs, drawn),
+                  train_set_size, valid_set_size)
 
 
 def generate_spring_mnist_dataset(
@@ -361,7 +439,8 @@ def generate_spring_mnist_dataset(
         seed=0):
     """Two MNIST digits (radius 11) on a spring over an optional static
     CIFAR background, at 5x supersampling; rejection-sampled against wall
-    collisions at radius 2."""
+    collisions at radius 2. The trajectories are drawn first and the
+    accepted ones rendered after, over one process per CPU."""
     np.random.seed(seed)
     rng = np.random
     scale = 5
@@ -412,36 +491,24 @@ def generate_spring_mnist_dataset(
             fslice = frame[rows, cols, 0]
             frame[rows, cols, 0] = dslice + (1 - dslice) * fslice
 
-    def generate_sequence():
-        collision = True
-        while collision:
-            seq = []
-            poss, vels = _spring_start(img_size, radius, equil, vx0_max,
-                                       vy0_max)
-            collision = False
-            for _ in range(seq_len):
-                frame = (bg_static.copy() if bg_static is not None
-                         else np.zeros(scaled + [ch], dtype=np.float32))
-                for j, pos in enumerate(poss):
-                    draw_digit(frame, j, pos)
-                frame = _box_downscale(frame, scale)
-                seq.append((frame * 255).astype(np.uint8))
-                for _ in range(ode_steps):
-                    poss, vels = numpy_generator_spring(
-                        poss, vels, k, equil, dt / ode_steps, 1)
-                    collision = (
-                        verify_wall_collision(poss[0], vels[0], 2, img_size)
-                        or verify_wall_collision(poss[1], vels[1], 2,
-                                                 img_size))
-                    if collision:
-                        break
-                if collision:
-                    break
-        return seq
+    def render(traj, _):
+        seq = []
+        for poss in traj:
+            frame = (bg_static.copy() if bg_static is not None
+                     else np.zeros(scaled + [ch], dtype=np.float32))
+            for j, pos in enumerate(poss):
+                draw_digit(frame, j, pos)
+            frame = _box_downscale(frame, scale)
+            seq.append((frame * 255).astype(np.uint8))
+        return np.stack(seq)
 
     total = train_set_size + valid_set_size + test_set_size
-    _save_dataset(dest, _generate(generate_sequence, total), train_set_size,
-                  valid_set_size)
+    trajs, drawn = _trajectories(
+        total, seq_len=seq_len, img_size=img_size, radius=radius,
+        wall_radius=2, equil=equil, k=k, dt=dt, ode_steps=ode_steps,
+        vx0_max=vx0_max, vy0_max=vy0_max)
+    _save_dataset(dest, _render_all(render, trajs, drawn),
+                  train_set_size, valid_set_size)
 
 
 def generate_3_body_problem_dataset(

@@ -5,9 +5,10 @@ Counterparts of ``paig_reproduction_tpu/models/blocks.py``:
 ``UNet`` (40 px and more), ``ConvolutionalEncoder``, ``VelocityEncoder``
 and ``VariableFromNetwork``.
 
-Every layer draws its kernel and bias from U(+-1/sqrt(fan_in)), torch's own
-Linear/Conv2d default, from an explicit ``torch.Generator``. Weights can
-instead be carried over from the JAX package with ``convert.py``.
+Every layer keeps torch's own Linear/Conv2d initialization, U(+-1/sqrt(
+fan_in)) for kernel and bias. A model's weights come from
+``models/jax_init.py`` (the JAX package's initial weights at a seed) or
+from the JAX package's parameters through ``convert.py``.
 
 ``dtype`` (``None`` = the input's) is a layer's computation dtype, as in the
 JAX package: the weights stay float32 (the master weights the optimizer and
@@ -32,27 +33,17 @@ from torch import nn
 from paig_reproduction_tpu_torch.ops.resize import resize_bilinear
 
 
-def _fan_in_uniform_(module: nn.Module, fan_in: int,
-                     generator: Optional[torch.Generator]):
-    bound = 1.0 / np.sqrt(fan_in)
-    with torch.no_grad():
-        module.weight.uniform_(-bound, bound, generator=generator)
-        module.bias.uniform_(-bound, bound, generator=generator)
-
-
 class TorchDense(nn.Linear):
-    """``nn.Linear`` with its kernel and bias drawn from ``generator``,
-    computing in ``dtype`` (see the module docstring). Under tensor
-    parallelism (``parallel/mesh.py``, ``shard_model``) ``tp_forward``
-    computes the layer from this process's slice of its kernel."""
+    """``nn.Linear`` computing in ``dtype`` (see the module docstring).
+    Under tensor parallelism (``parallel/mesh.py``, ``shard_model``)
+    ``tp_forward`` computes the layer from this process's slice of its
+    kernel."""
 
     tp_forward = None
 
     def __init__(self, in_features: int, out_features: int,
-                 generator: Optional[torch.Generator] = None,
                  dtype: Optional[torch.dtype] = None):
         super().__init__(in_features, out_features)
-        _fan_in_uniform_(self, in_features, generator)
         self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -69,11 +60,9 @@ class TorchConv(nn.Conv2d):
     ``dtype`` (see the module docstring)."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3,
-                 generator: Optional[torch.Generator] = None,
                  dtype: Optional[torch.dtype] = None):
         super().__init__(in_ch, out_ch, kernel_size,
                          padding=kernel_size // 2)
-        _fan_in_uniform_(self, in_ch * kernel_size ** 2, generator)
         self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -94,7 +83,6 @@ class ShallowUNet(nn.Module):
     post-resize convs (6 and 9) and a ReLU on the final 1x1 conv."""
 
     def __init__(self, in_ch: int, hidden: int = 8, out_features: int = 2,
-                 generator: Optional[torch.Generator] = None,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
         h = hidden
@@ -103,10 +91,10 @@ class ShallowUNet(nn.Module):
                   (4 * h, 2 * h), (4 * h, 2 * h), (2 * h, 2 * h),
                   (2 * h, 2 * h), (3 * h, h), (h, h)]
         self.convs = nn.ModuleList(
-            [TorchConv(i, o, generator=generator, dtype=dtype)
+            [TorchConv(i, o, dtype=dtype)
              for i, o in shapes]
             + [TorchConv(h, out_features, kernel_size=1,
-                         generator=generator, dtype=dtype)])
+                         dtype=dtype)])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # [N, C, H, W]
         c = self.convs
@@ -139,7 +127,6 @@ class UNet(nn.Module):
     on the final 1x1 conv."""
 
     def __init__(self, in_ch: int, hidden: int = 16, out_features: int = 2,
-                 generator: Optional[torch.Generator] = None,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
         h = hidden
@@ -149,10 +136,10 @@ class UNet(nn.Module):
                   (4 * h, 4 * h), (4 * h, 2 * h), (4 * h, 2 * h),
                   (2 * h, 2 * h), (2 * h, 2 * h), (3 * h, h), (h, h)]
         self.convs = nn.ModuleList(
-            [TorchConv(i, o, generator=generator, dtype=dtype)
+            [TorchConv(i, o, dtype=dtype)
              for i, o in shapes]
             + [TorchConv(h, out_features, kernel_size=1,
-                         generator=generator, dtype=dtype)])
+                         dtype=dtype)])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # [N, C, H, W]
         c = self.convs
@@ -210,7 +197,6 @@ class ConvolutionalEncoder(nn.Module):
 
     def __init__(self, input_hw, in_ch: int, n_objs: int = 2,
                  hidden_dim: int = 200, out_features: int = 2,
-                 generator: Optional[torch.Generator] = None,
                  active_slots: int = 0, slot_gate_soft: float = 0.0,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
@@ -222,15 +208,15 @@ class ConvolutionalEncoder(nn.Module):
         self.slot_gate_soft = slot_gate_soft
         self.small = width < 40
         if self.small:
-            self.unet = ShallowUNet(in_ch, 8, n_objs, generator, dtype)
+            self.unet = ShallowUNet(in_ch, 8, n_objs, dtype)
             head_in = height * width * in_ch
         else:
-            self.unet = UNet(in_ch, 16, n_objs, generator, dtype)
+            self.unet = UNet(in_ch, 16, n_objs, dtype)
             head_in = (height // 2) * (width // 2) * in_ch
         self.dense = nn.ModuleList([
-            TorchDense(head_in, hidden_dim, generator, dtype),
-            TorchDense(hidden_dim, hidden_dim, generator, dtype),
-            TorchDense(hidden_dim, out_features, generator)])
+            TorchDense(head_in, hidden_dim, dtype=dtype),
+            TorchDense(hidden_dim, hidden_dim, dtype=dtype),
+            TorchDense(hidden_dim, out_features)])
 
     def forward(self, inp: torch.Tensor):
         n, ch = inp.shape[0], inp.shape[1]
@@ -269,20 +255,19 @@ class VelocityEncoder(nn.Module):
     ``alt_vel`` a learned linear combination of frame-to-frame differences.
     Objects are folded into the batch so weights are shared across them."""
 
-    def __init__(self, alt_vel: bool, input_steps: int, n_objs: int,
-                 generator: Optional[torch.Generator] = None):
+    def __init__(self, alt_vel: bool, input_steps: int, n_objs: int):
         super().__init__()
         self.alt_vel = alt_vel
         self.input_steps = input_steps
         self.n_objs = n_objs
         if alt_vel:
             self.dense = nn.ModuleList(
-                [TorchDense((input_steps - 1) * 2, 2, generator)])
+                [TorchDense((input_steps - 1) * 2, 2)])
         else:
             self.dense = nn.ModuleList([
-                TorchDense(input_steps * 2, 100, generator),
-                TorchDense(100, 100, generator),
-                TorchDense(100, 2, generator)])
+                TorchDense(input_steps * 2, 100),
+                TorchDense(100, 100),
+                TorchDense(100, 2)])
 
     def forward(self, pos: torch.Tensor) -> torch.Tensor:
         b, s, o = pos.shape[0], self.input_steps, self.n_objs
@@ -306,13 +291,12 @@ class VariableFromNetwork(nn.Module):
     deltas around it. It is a buffer, not a parameter, and is not saved."""
 
     def __init__(self, shape: Sequence[int],
-                 generator: Optional[torch.Generator] = None,
                  init_bias=None):
         super().__init__()
         self.shape = tuple(shape)
         self.dense = nn.ModuleList([
-            TorchDense(10, 200, generator),
-            TorchDense(200, int(np.prod(self.shape)), generator)])
+            TorchDense(10, 200),
+            TorchDense(200, int(np.prod(self.shape)))])
         self.register_buffer(
             "init_bias", None if init_bias is None else
             torch.as_tensor(init_bias, dtype=torch.float32).reshape(

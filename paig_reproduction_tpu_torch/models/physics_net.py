@@ -104,25 +104,15 @@ CELL_PARAMS = {
 }
 
 
-def _lstm_cell(in_features: int, hidden: int,
-               generator: Optional[torch.Generator]) -> nn.LSTMCell:
-    """An ``nn.LSTMCell`` with flax ``OptimizedLSTMCell``'s parameters and
-    initialisation. flax keeps a kernel per gate (i, f, g, o: torch's order
-    too), input kernels LeCun-normal without bias, recurrent kernels
-    orthogonal with a zero bias. So ``weight_ih`` is four truncated-normal
-    blocks, ``weight_hh`` four orthogonal blocks, ``bias_hh`` zero, and
-    ``bias_ih`` is a zero buffer rather than a parameter: a trained input
-    bias would move the gates' bias at twice the rate."""
+def _lstm_cell(in_features: int, hidden: int) -> nn.LSTMCell:
+    """An ``nn.LSTMCell`` with flax ``OptimizedLSTMCell``'s parameters. flax
+    keeps a kernel per gate (i, f, g, o: torch's order too), input kernels
+    without bias, recurrent kernels with one. So ``bias_ih`` is a zero
+    buffer rather than a parameter: a trained input bias would move the
+    gates' bias at twice the rate. flax's initialization (LeCun-normal
+    input kernels, orthogonal recurrent kernels, a zero bias) is
+    ``models/jax_init.py``'s."""
     cell = nn.LSTMCell(in_features, hidden)
-    # flax's lecun_normal: a normal truncated at two deviations, scaled so
-    # that its variance is 1/fan_in.
-    std = np.sqrt(1.0 / in_features) / 0.87962566103423978
-    with torch.no_grad():
-        nn.init.trunc_normal_(cell.weight_ih, std=std, a=-2 * std,
-                              b=2 * std, generator=generator)
-        for block in cell.weight_hh.view(4, hidden, hidden):
-            nn.init.orthogonal_(block, generator=generator)
-        cell.bias_hh.zero_()
     del cell.bias_ih
     cell.register_buffer("bias_ih", torch.zeros(4 * hidden),
                          persistent=False)
@@ -131,7 +121,9 @@ def _lstm_cell(in_features: int, hidden: int,
 
 class PhysicsNet(nn.Module):
     """See module docstring. Constructor arguments mirror the JAX model's
-    fields; ``generator`` seeds the initial weights."""
+    fields. The weights start at torch's initialization;
+    ``models/jax_init.py`` gives the JAX package's initial weights at a
+    seed (the CLI's ``--seed``)."""
 
     def __init__(self, task: str = "spring_color",
                  recurrent_units: int = 100, lstm_layers: int = 1,
@@ -142,7 +134,6 @@ class PhysicsNet(nn.Module):
                  encoder_type: str = "conv_encoder",
                  decoder_type: str = "conv_st_decoder",
                  decoder_backend: str = "auto", cell_substeps: int = 5,
-                 generator: Optional[torch.Generator] = None,
                  **extensions):
         super().__init__()
         for name in extensions:
@@ -198,9 +189,8 @@ class PhysicsNet(nn.Module):
         self.tmpl_size = self.img_size // 2
 
         o, t, img, ch = self.n_objs, self.tmpl_size, self.img_size, self.conv_ch
-        self.var_net_content = VariableFromNetwork((o, t, t, ch), generator)
-        self.var_net_background = VariableFromNetwork((img, img, ch),
-                                                      generator)
+        self.var_net_content = VariableFromNetwork((o, t, t, ch))
+        self.var_net_background = VariableFromNetwork((img, img, ch))
         tmpl_prior = None
         if self.template_init > 0:
             # Centred-disk logit prior: +6 inside the radius, -6 outside.
@@ -209,15 +199,15 @@ class PhysicsNet(nn.Module):
             disk = np.where(np.sqrt((yy - c) ** 2 + (xx - c) ** 2)
                             <= self.template_init, 6.0, -6.0)
             tmpl_prior = np.tile(disk[None], (o, 1, 1))
-        self.var_net_template = VariableFromNetwork((o, t, t), generator,
+        self.var_net_template = VariableFromNetwork((o, t, t),
                                                     init_bias=tmpl_prior)
         self.encoder = ConvolutionalEncoder(
             (img, img), ch, n_objs=o, hidden_dim=200, out_features=2,
-            generator=generator, active_slots=self.active_slots,
+            active_slots=self.active_slots,
             slot_gate_soft=self.slot_gate_soft,
             dtype=COMPUTE_DTYPES[self.compute_dtype])
         self.velocity_encoder = (
-            VelocityEncoder(alt_vel, input_steps, o, generator)
+            VelocityEncoder(alt_vel, input_steps, o)
             if input_steps > 1 else None)
         for name in CELL_PARAMS[cell_type]:
             setattr(self, name, nn.Parameter(torch.zeros(())))
@@ -226,9 +216,8 @@ class PhysicsNet(nn.Module):
             for i in range(lstm_layers):
                 setattr(self, f"lstm_{i}", _lstm_cell(
                     self.coord_units if i == 0 else recurrent_units,
-                    recurrent_units, generator))
-            self.lstm_proj = TorchDense(recurrent_units, self.coord_units,
-                                        generator)
+                    recurrent_units))
+            self.lstm_proj = TorchDense(recurrent_units, self.coord_units)
         # The JAX model's LSTM branch creates no frame offset.
         if self.learn_frame_offset and cell_type != "lstm":
             self.frame_offset = nn.Parameter(

@@ -32,7 +32,7 @@ import torch
 
 from paig_reproduction_tpu_torch.cli import TASK_TABLE
 from paig_reproduction_tpu_torch.data.iterators import get_iterators
-from paig_reproduction_tpu_torch.models import PhysicsNet
+from paig_reproduction_tpu_torch.models import PhysicsNet, jax_init
 from paig_reproduction_tpu_torch.train.trainer import Trainer
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -89,8 +89,8 @@ def main(argv=None):
                        color=True, input_size=input_size,
                        init_state_fit=args.init_state_fit,
                        learn_frame_offset=args.learn_frame_offset,
-                       compute_dtype=args.compute_dtype,
-                       generator=torch.Generator().manual_seed(0))
+                       compute_dtype=args.compute_dtype)
+    jax_init.load_initial_state(model, jax_init.prng_key(0))
     trainer = Trainer(model, device="cuda")
     trainer.get_data(get_iterators(os.path.join(args.data_dir, data_file),
                                    conv=True))

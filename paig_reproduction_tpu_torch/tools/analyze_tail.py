@@ -78,7 +78,7 @@ def main(argv=None):
             autoencoder_loss=3.0, color=True, input_size=img * img,
             cell_substeps=args.cell_substeps,
             learn_frame_offset=args.learn_frame_offset,
-            generator=torch.Generator().manual_seed(0), **extra).to(device)
+            **extra).to(device)
 
     model = physics_net(args.seq_len, args.pred_steps,
                         init_state_fit=args.init_state_fit)

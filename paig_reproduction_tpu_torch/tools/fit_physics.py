@@ -59,8 +59,7 @@ def restore_model(task, ckpt_dir, device="cuda"):
     model = PhysicsNet(task=task, cell_type=cell_type, seq_len=seq_len,
                        input_steps=input_steps, pred_steps=pred_steps,
                        autoencoder_loss=3.0, color=True,
-                       input_size=input_size,
-                       generator=torch.Generator().manual_seed(0))
+                       input_size=input_size)
     model = model.to(device)
     restore_checkpoint(ckpt_dir, model)
     return model, load_checkpoint(ckpt_dir)

@@ -10,8 +10,8 @@ eval losses, so that a good seed can be picked before a long run:
         --autoencoder_loss 3.0
 
 Each seed seeds the data shuffle (numpy's global generator, as the CLI
-does) and the weights (``torch.Generator().manual_seed(seed)``, the CLI's
-``--seed``). On the card the trainer takes its graphed step, as the CLI
+does) and the weights (the JAX package's initial weights at that seed,
+``models/jax_init.py``, as the CLI's ``--seed`` does). On the card the trainer takes its graphed step, as the CLI
 does. Each seed's run writes its log.txt and model.ckpt under
 ``--save_root``.
 """
@@ -46,10 +46,10 @@ def main(argv=None):
     args = p.parse_args(argv)
 
     import numpy as np
-    import torch
 
     from paig_reproduction_tpu_torch.cli import TASK_TABLE
     from paig_reproduction_tpu_torch.data.iterators import get_iterators
+    from paig_reproduction_tpu_torch.models import jax_init
     from paig_reproduction_tpu_torch.models.registry import get_model
     from paig_reproduction_tpu_torch.train.trainer import Trainer
 
@@ -66,8 +66,8 @@ def main(argv=None):
             autoencoder_loss=args.autoencoder_loss, color=True,
             input_size=input_size,
             attn_overlap_loss=args.attn_overlap_loss,
-            recons_warmup=args.recons_warmup,
-            generator=torch.Generator().manual_seed(seed))
+            recons_warmup=args.recons_warmup)
+        jax_init.load_initial_state(model, jax_init.prng_key(seed))
         its = get_iterators(os.path.join(args.data_dir, data_file),
                             conv=True)
         trainer = Trainer(model, device=args.device, seed=seed)

@@ -30,10 +30,12 @@ SCALARS = ("step", "epoch", "total_epochs_done")
 # The recipe state and its values in a checkpoint without it: the step the
 # --aux_on_recons trigger fired at, the step, count and epoch of the last
 # --auto_rescue surgery (-1: none) and the (epoch, valid recons) history of
-# the rescue's stall guard.
+# the rescue's stall guard; and the epochs of --epochs that the chain's
+# discovery arms used (``total_epochs_done`` counts the loop's only, as the
+# JAX package's does).
 RECIPE_DEFAULTS = {"aux_trigger_step": -1, "rescue_step": -1,
                    "rescue_count": -1, "rescue_epoch": -(10 ** 9),
-                   "recons_history": []}
+                   "recons_history": [], "arm_epochs": 0}
 
 logger = logging.getLogger("paig")
 

@@ -18,6 +18,7 @@ import logging
 import numpy as np
 import torch
 
+from paig_reproduction_tpu_torch.models import jax_init
 from paig_reproduction_tpu_torch.ops import cells, identify
 from paig_reproduction_tpu_torch.train import surgery
 
@@ -25,16 +26,6 @@ logger = logging.getLogger("paig")
 
 # Aux warm-up boundary while the --aux_on_recons trigger has not fired.
 NEVER = 1 << 30
-
-
-def arm_generator(seed: int, arm: int) -> torch.Generator:
-    """The weights' generator of discovery arm ``arm``: arm 0 is the plain
-    run's (``seed``), the others each draw their own seed from
-    ``(seed, arm)``."""
-    if arm == 0:
-        return torch.Generator().manual_seed(seed)
-    return torch.Generator().manual_seed(int(
-        np.random.SeedSequence([seed, arm]).generate_state(1)[0]))
 
 
 class RecipeMixin:
@@ -78,10 +69,10 @@ class RecipeMixin:
                                keep_going_below: float = 0.0):
         """Random-restart object discovery (--discovery_restarts).
 
-        Trains ``restarts`` arms, each from fresh weights (its own
-        ``arm_generator``), a fresh optimizer and the ongoing shuffle
-        stream, for ``arm_epochs`` epochs; scores each by valid recons and
-        continues the run from the best. Arm 0 is the plain run's weights,
+        Trains ``restarts`` arms, each from fresh weights (the JAX
+        package's arm's: ``jax_init.arm_key``), a fresh optimizer and the
+        ongoing shuffle stream, for ``arm_epochs`` epochs; scores each by
+        valid recons and continues the run from the best. Arm 0 is the plain run's weights,
         so one restart reproduces the plain run. A diverged (NaN) arm never
         wins. With ``keep_going_below`` > 0 the arms stop once one scores
         under it. Returns the per-arm scores."""
@@ -89,8 +80,9 @@ class RecipeMixin:
         scores = []
         best = None                       # (recons, model state, opt, step)
         for arm in range(restarts):
-            fresh = type(self.model)(**self.model.config,
-                                     generator=arm_generator(self.seed, arm))
+            fresh = jax_init.load_initial_state(
+                type(self.model)(**self.model.config),
+                jax_init.arm_key(self.seed, arm))
             self.load_whole_state(fresh.state_dict())
             self.optimizer = self._make_optimizer()
             self.step = self._opt_step0 = 0
@@ -113,7 +105,7 @@ class RecipeMixin:
         else:
             recons, state, self.optimizer, self.step = best
             self.model.load_state_dict(state)
-        self._epochs_consumed = arm_epochs
+        self._epochs_consumed = self._arm_epochs = arm_epochs
         logger.info("discovery restarts: continuing from arm %d "
                     "(valid recons %.3f; arms %s)",
                     scores.index(best[0]) if best else len(scores) - 1,

@@ -8,7 +8,8 @@ lines, an eval every ``eval_every_n_epochs`` epochs, a checkpoint every
 at the end, with the same log.txt lines and the same artifacts: code.zip,
 model.ckpt, outputs.npz on every eval, and after every valid and test eval
 ``example%d.jpg``, ``animation%d.gif``, ``templates.jpg`` and
-``extra_outputs.npz``. Every split lives on the device as uint8; each step
+``extra_outputs.npz``, written on writer threads beside the next epoch
+(``flush_artifacts`` waits for them). Every split lives on the device as uint8; each step
 gathers its batch there from the iterator's indices.
 
 The single-command recipes (``train/recipes.py``) hook into the loop as in
@@ -165,7 +166,8 @@ class Trainer(RecipeMixin):
         # checkpoint.
         self._cur_epoch = 0
         self._epoch_base = 0
-        self._npz_thread = None
+        # Artifact writer threads by name: (thread, [its exception]).
+        self._writer_threads = {}
         # Recipes (train/recipes.py). Steps before the extension losses
         # count (--aux_warmup_epochs; NEVER until --aux_on_recons fires).
         self.aux_warmup_steps = 0
@@ -184,8 +186,12 @@ class Trainer(RecipeMixin):
         # (epoch, valid recons) of every valid eval: the rescue's stall
         # guard.
         self._recons_history = []
-        # Epochs the discovery arms used before train_model's loop.
+        # Epochs the discovery arms used before train_model's loop (0 on a
+        # resume, as in the JAX trainer); the restored chain's arm epochs,
+        # and its arm and loop epochs (--resume_remaining_epochs).
         self._epochs_consumed = 0
+        self._arm_epochs = 0
+        self._chain_epochs = 0
         # Runtime extras (module docstring). The watchdog is made at the
         # first pet, so a trainer with watchdog_secs=0 starts no thread.
         self.profile_dir = profile_dir
@@ -285,6 +291,9 @@ class Trainer(RecipeMixin):
         """The recipe state of a checkpoint, as the JAX trainer restores
         it. Epochs are rebased by ``ep_saved`` into the resumed run's
         numbering (its loop starts at epoch 1 again)."""
+        # --epochs that the chain has used: its arms' and its loop epochs.
+        self._arm_epochs = int(state["arm_epochs"])
+        self._chain_epochs = self._arm_epochs + self._epoch_base
         if state["recons_history"]:
             self._recons_history = [(int(e) - ep_saved, float(r))
                                     for e, r in state["recons_history"]]
@@ -358,6 +367,7 @@ class Trainer(RecipeMixin):
                 "rescue_step": self._rescue_step,
                 "rescue_count": self._rescue_count,
                 "rescue_epoch": self._last_rescue_ep,
+                "arm_epochs": self._arm_epochs,
                 "recons_history": [list(h) for h in
                                    self._recons_history[-64:]]}})
 
@@ -859,10 +869,35 @@ class Trainer(RecipeMixin):
                     "active", recons, self.aux_on_recons, ep, self.step)
 
     def flush_artifacts(self):
-        """Block until the outputs.npz writer (if any) has finished."""
-        if self._npz_thread is not None:
-            self._npz_thread.join()
-            self._npz_thread = None
+        """Block until the artifact writers (outputs.npz, the
+        visualization's files) have finished; re-raise what one raised."""
+        for name in list(self._writer_threads):
+            self._join_writer(name)
+
+    def _join_writer(self, name):
+        thread, failed = self._writer_threads.pop(name, (None, None))
+        if thread is None:
+            return
+        thread.join()
+        if failed:
+            raise failed[0]
+
+    def _in_background(self, name, fn, *args, **kwargs):
+        """Run ``fn`` on a writer thread of its own, after the earlier
+        writer of ``name`` (the same files) has finished. The thread is
+        not a daemon: the process waits for it at exit."""
+        self._join_writer(name)
+        failed = []
+
+        def run():
+            try:
+                fn(*args, **kwargs)
+            except BaseException as e:          # re-raised by the join
+                failed.append(e)
+
+        thread = threading.Thread(target=run, daemon=False)
+        self._writer_threads[name] = (thread, failed)
+        thread.start()
 
     @torch.no_grad()
     def _eval_losses(self, type, batch_size):
@@ -931,13 +966,10 @@ class Trainer(RecipeMixin):
     def _write_outputs_npz(self, inputs, outputs):
         """outputs.npz (``input``: the split's evaluated sequences;
         ``output``: each batch's pred, extrap and recons losses), written
-        by a non-daemon thread after any earlier one has finished."""
-        self.flush_artifacts()
-        path = os.path.join(self.save_dir, "outputs.npz")
-        self._npz_thread = threading.Thread(
-            target=savez_fast, args=(path,),
-            kwargs=dict(input=inputs, output=outputs), daemon=False)
-        self._npz_thread.start()
+        by a writer thread after any earlier one has finished."""
+        self._in_background("npz", savez_fast,
+                            os.path.join(self.save_dir, "outputs.npz"),
+                            input=inputs, output=outputs)
 
     # ----- visualization ------------------------------------------------------
     @torch.no_grad()
@@ -947,7 +979,8 @@ class Trainer(RecipeMixin):
         sequences: example%d.jpg (rows: prediction / ground truth /
         reconstruction), animation%d.gif (output over ground-truth strips),
         extra_outputs.npz and templates.jpg (sigmoid(contents) above
-        sigmoid(template - 5))."""
+        sigmoid(template - 5)), written by ``write_visualization`` on a
+        writer thread."""
         model = self.model
         batch_size = min(getattr(self, "batch_size", 8),
                          int(os.environ.get("PAIG_VIZ_EXAMPLES", "8")))
@@ -973,41 +1006,60 @@ class Trainer(RecipeMixin):
              np.zeros((batch_size, model.extrap_steps)
                       + recons_seq.shape[2:])], axis=1)
 
-        h = w = model.img_size
-        for i in range(batch_x.shape[0]):
-            total_seq = np.concatenate(
-                [output_seq[i], batch_x[i], recons_seq[i]], axis=0)
-            total_seq = np.transpose(total_seq, (0, 2, 3, 1))
-            save_image(os.path.join(self.save_dir, "example%d.jpg" % i),
-                       gallery(total_seq, ncols=batch_x.shape[1]))
+        self._in_background(
+            "viz", write_visualization, self.save_dir, batch_x, output_seq,
+            recons_seq, extras, seq_len=model.seq_len,
+            img_size=model.img_size, conv_ch=model.conv_ch,
+            n_objs=model.n_objs)
 
+
+def write_visualization(save_dir, batch_x, output_seq, recons_seq, extras,
+                        seq_len, img_size, conv_ch, n_objs):
+    """The visualization's files from its host arrays (``visualize_sequence``
+    runs this on a writer thread): example%d.jpg, animation%d.gif,
+    extra_outputs.npz and templates.jpg. The example JPEGs are encoded on
+    a few threads while this one writes the rest (numpy releases the
+    interpreter lock in their transforms)."""
+    from concurrent.futures import ThreadPoolExecutor
+    batch_size = batch_x.shape[0]
+    h = w = img_size
+
+    def example(i):
+        total_seq = np.concatenate(
+            [output_seq[i], batch_x[i], recons_seq[i]], axis=0)
+        total_seq = np.transpose(total_seq, (0, 2, 3, 1))
+        save_image(os.path.join(save_dir, "example%d.jpg" % i),
+                   gallery(total_seq, ncols=batch_x.shape[1]))
+
+    with ThreadPoolExecutor(max_workers=min(4, batch_size)) as pool:
+        examples = [pool.submit(example, i) for i in range(batch_size)]
         out_nhwc = np.transpose(output_seq, (0, 1, 3, 4, 2))
         gt_nhwc = np.transpose(batch_x, (0, 1, 3, 4, 2))
-        if model.conv_ch == 1:
+        if conv_ch == 1:
             out_nhwc = np.repeat(out_nhwc, 3, axis=-1)
             gt_nhwc = np.repeat(gt_nhwc, 3, axis=-1)
-        bordered_out = 0.5 * np.ones(
-            [batch_size, model.seq_len, h + 2, w + 2, 3])
+        bordered_out = 0.5 * np.ones([batch_size, seq_len, h + 2, w + 2, 3])
         bordered_gt = 0.5 * np.ones_like(bordered_out)
         bordered_out[:, :, 1:-1, 1:-1] = out_nhwc
         bordered_gt[:, :, 1:-1, 1:-1] = gt_nhwc
         strip_out = np.concatenate(list(bordered_out), axis=-2)
         strip_gt = np.concatenate(list(bordered_gt), axis=-2)
         frames = np.concatenate([strip_out, strip_gt], axis=1)
-        gif(os.path.join(self.save_dir,
-                         "animation%d.gif" % (batch_x.shape[0] - 1)),
+        gif(os.path.join(save_dir, "animation%d.gif" % (batch_size - 1)),
             frames * 255, fps=7, scale=3)
 
-        np.savez_compressed(os.path.join(self.save_dir, "extra_outputs.npz"),
+        np.savez_compressed(os.path.join(save_dir, "extra_outputs.npz"),
                             **extras)
 
         contents = np.transpose(extras["contents"], (0, 2, 3, 1))
         templates = np.transpose(extras["templates"], (0, 2, 3, 1))
         contents = 1 / (1 + np.exp(-contents))
         templates = 1 / (1 + np.exp(-(templates - 5)))
-        if model.conv_ch == 1:
+        if conv_ch == 1:
             contents = np.tile(contents, [1, 1, 1, 3])
         templates = np.tile(templates, [1, 1, 1, 3])
-        save_image(os.path.join(self.save_dir, "templates.jpg"),
+        save_image(os.path.join(save_dir, "templates.jpg"),
                    gallery(np.concatenate([contents, templates], axis=0),
-                           ncols=model.n_objs))
+                           ncols=n_objs))
+        for f in examples:
+            f.result()

@@ -127,13 +127,16 @@ def test_variable_from_network_matches_jax():
 
 
 def test_layers_draw_from_the_generator():
-    """The same seed gives the same weights; torch Linear's default
+    """The layers keep torch's initialization: the same seed of torch's
+    generator gives the same weights, and Linear's default
     U(+-1/sqrt(fan_in)) bound holds for kernel and bias."""
-    a = tblocks.TorchDense(50, 7, torch.Generator().manual_seed(3))
-    b = tblocks.TorchDense(50, 7, torch.Generator().manual_seed(3))
+    torch.manual_seed(3)
+    a = tblocks.TorchDense(50, 7)
+    torch.manual_seed(3)
+    b = tblocks.TorchDense(50, 7)
     assert torch.equal(a.weight, b.weight) and torch.equal(a.bias, b.bias)
     bound = 1 / np.sqrt(50)
     assert float(a.weight.detach().abs().max()) <= bound
     assert float(a.bias.detach().abs().max()) <= bound
-    conv = tblocks.TorchConv(4, 6, generator=torch.Generator().manual_seed(0))
+    conv = tblocks.TorchConv(4, 6)
     assert float(conv.weight.detach().abs().max()) <= 1 / np.sqrt(4 * 9)

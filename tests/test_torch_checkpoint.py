@@ -31,7 +31,8 @@ from paig_reproduction_tpu_torch.convert import (
     flax_to_state_dict,
 )
 from paig_reproduction_tpu_torch.data import iterators
-from paig_reproduction_tpu_torch.models import PhysicsNet, compute_losses
+from paig_reproduction_tpu_torch.models import (PhysicsNet, compute_losses,
+                                                jax_init)
 from paig_reproduction_tpu_torch.train import checkpoint
 from paig_reproduction_tpu_torch.train import trainer as trainer_mod
 from paig_reproduction_tpu_torch.train.trainer import Trainer
@@ -69,7 +70,8 @@ def _tiny_file(dst_dir, src, n_train=8, n_eval=4):
 
 
 def _trainer(path, optimizer, seed=0):
-    model = PhysicsNet(**KW, generator=torch.Generator().manual_seed(seed))
+    model = jax_init.load_initial_state(PhysicsNet(**KW),
+                                        jax_init.prng_key(seed))
     trainer = Trainer(model, device="cpu")
     trainer.get_data(iterators.get_iterators(path, conv=True))
     trainer.build_optimizer(6e-4, optimizer, True, epochs=2,

@@ -345,6 +345,16 @@ def test_graph_and_parallel_configs_are_the_cli_flags():
             assert set(chip_smoke.TASK_RUNS[name]["flags"]) <= set(argv)
     assert parser.parse_args(chip_smoke.GRAPH_CONFIGS["lstm"]).cell_type \
         == "lstm"
+    assert parser.parse_args(
+        chip_smoke.GRAPH_CONFIGS["bf16"]).compute_dtype == "bfloat16"
+    assert {"bouncing_balls", "spring_color_half"} <= set(
+        chip_smoke.GRAPH_CONFIGS)
+    recipe = parser.parse_args(chip_smoke.GRAPH_CONFIGS["spring_recipe"])
+    assert set(chip_smoke.RECIPE_MODEL_FLAGS) <= set(chip_smoke.RECIPE_ARGS)
+    assert (recipe.task, recipe.pos_consistency, recipe.vel_anchor,
+            recipe.init_state_fit, recipe.enhancers_eval_only) == (
+        "spring_color", 1.0, 1.0, 3, True)
+    assert len(chip_smoke.GRAPH_CONFIGS) == 8
     assert chip_smoke.PARALLEL_ARGS == chip_smoke.TRAIN_ARGS
 
 
@@ -476,7 +486,10 @@ def test_kernels_line_has_every_phase(capsys):
     timings = {shape: timing for shape in chip_smoke.TIMED_SHAPES}
     runs = dict(
         recipe=dict(launches=442, refine_launches=128),
-        tasks={"3bp_color": dict(launches=72)}, lstm=dict(launches=130),
+        tasks={"3bp_color": dict(launches=72)}, lstm=dict(
+            launches=11430, test={"pred": 19.0}, log_test={"pred": 19.16},
+            limits={"pred": 21.08}, valid10_pred=20.3, last_pred=19.2,
+            wall_s=200.0, steps=3750, eval_s=90.0, step_ms=23.3),
         bf16=dict(launches=130), runtime=dict(launches=30),
         native=dict(launches=130, fused_launches=130),
         graph=dict(param_rel=0.0, bitwise=True, eval_rel=0.0, steps={}),
@@ -494,6 +507,12 @@ def test_kernels_line_has_every_phase(capsys):
                                            "slot_rescue": 0}
     assert kernel["native_loader_fused_launches"] == 130
     assert kernel["task_launches"] == {"3bp_color": 72}
+    assert kernel["lstm_launches"] == 11430
+    assert kernel["lstm_proof"]["test"] == {"pred": 19.0}
+    assert kernel["lstm_proof"]["steps"] == 3750
+    # Only numbers measured in the run: the log's and the limits derived
+    # from it are printed by the lstm phase, not carried here.
+    assert not {"log_test", "limits"} & set(kernel["lstm_proof"])
 
 
 def test_pipeline_flags_are_the_cli_flags():
@@ -508,14 +527,16 @@ def test_pipeline_flags_are_the_cli_flags():
     assert chip_smoke.PIPELINE_EPOCHS == 50
 
 
-@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+@pytest.mark.parametrize("seed", [chip_smoke.DISCOVERY_SEED, 1,
+                                  chip_smoke.DEAD_SEED])
 def test_discovery_seed_has_live_slots(seed):
-    """Why the discovery run starts from DISCOVERY_SEED: the ShallowUNet's
-    final ReLU passes no slot's mask logit at initialization for seeds 0, 2
-    and 3 of the main path's model (the final 1x1 conv's output is negative
-    at every pixel of 20 train sequences), so no gradient reaches the UNet
-    and the slots never part; at DISCOVERY_SEED each slot's logit is
-    positive somewhere."""
+    """Why the seed-sweep stage holds DEAD_SEED beside DISCOVERY_SEED: the
+    ShallowUNet's final ReLU passes a slot's mask logit only where the
+    final 1x1 conv's output is positive (at initialization, on 20 train
+    sequences). With the JAX package's initial weights (the CLI's --seed)
+    DISCOVERY_SEED (0, the JAX package's spring500 run's and the logged
+    LSTM run's) has one live slot, seed 1 two and DEAD_SEED none, so no
+    gradient reaches its UNet and its slots never part."""
     import numpy as np
     import torch
 
@@ -535,7 +556,5 @@ def test_discovery_seed_has_live_slots(seed):
     with torch.no_grad():
         unet(x.reshape(200, 3, 32, 32).float() / 255)
     live = (seen["logits"] > 0).flatten(2).any(-1).any(0)   # per slot
-    if seed == chip_smoke.DISCOVERY_SEED:
-        assert live.all()
-    else:
-        assert not live.any()
+    assert int(live.sum()) == {chip_smoke.DISCOVERY_SEED: 1, 1: 2,
+                               chip_smoke.DEAD_SEED: 0}[seed]

@@ -100,7 +100,7 @@ def test_kernel_rejects_shapes_above_the_shared_memory_budget(cuda):
 
 
 def test_physics_net_kernel_backend_matches_plain(cuda):
-    from paig_reproduction_tpu_torch.models import PhysicsNet
+    from paig_reproduction_tpu_torch.models import PhysicsNet, jax_init
     kw = dict(task="spring_color", cell_type="spring_ode_cell", seq_len=12,
               input_steps=4, pred_steps=6, autoencoder_loss=3.0, color=True,
               input_size=32 * 32)
@@ -108,9 +108,9 @@ def test_physics_net_kernel_backend_matches_plain(cuda):
                    generator=torch.Generator().manual_seed(0)).to(cuda)
     outs = []
     for backend in ("xla", "auto"):
-        model = PhysicsNet(decoder_backend=backend,
-                           generator=torch.Generator().manual_seed(0),
-                           **kw).to(cuda)
+        model = jax_init.load_initial_state(
+            PhysicsNet(decoder_backend=backend, **kw),
+            jax_init.prng_key(0)).to(cuda)
         with torch.no_grad():
             outs.append(model(x)[0])
     torch.testing.assert_close(outs[1], outs[0], rtol=0, atol=2e-5)

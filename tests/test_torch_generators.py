@@ -53,6 +53,43 @@ def test_generator_bytes_equal_jax(task, tmp_path, no_mnist_cache):
     assert data[:2] == b"\xff\xd8" and data[-2:] == b"\xff\xd9"
 
 
+@pytest.mark.parametrize("task", ["spring_color_half",
+                                  "mnist_spring_color"])
+def test_long_sequences_equal_jax(task, tmp_path, no_mnist_cache):
+    """The test-length (30-frame) preset, whose initial conditions are
+    rejected most often: the port draws every attempt's trajectory before
+    rendering the accepted ones, the JAX generator renders as it goes; the
+    bytes are the same."""
+    (_, j_fn, j_kw) = jax_generate._presets(2, 1, 1)[task][1]
+    (_, fn, kw) = generate.presets()[task][1]
+    assert kw["seq_len"] == 30
+    j_fn(str(tmp_path / "jax.npz"), **j_kw)
+    fn(str(tmp_path / "port.npz"), train_set_size=2, valid_set_size=1,
+       test_set_size=1, **kw)
+    with np.load(tmp_path / "jax.npz") as a, \
+            np.load(tmp_path / "port.npz") as b:
+        for key in a.files:
+            assert np.array_equal(a[key], b[key]), key
+
+
+def test_workers_write_the_same_files(tmp_path, no_mnist_cache):
+    """``generate.generate`` writes both files of a spring preset at once,
+    each in its own process, their frames rendered over one process per
+    CPU: the bytes equal the JAX generators' written one after the other
+    in this process."""
+    paths = generate.generate("spring_color_half", str(tmp_path / "port"),
+                              (5, 2, 2), (3, 1, 2))
+    jax_presets = [jax_generate._presets(*n)["spring_color_half"][i]
+                   for i, n in enumerate([(5, 2, 2), (3, 1, 2)])]
+    for path, (rel, j_fn, j_kw) in zip(paths, jax_presets):
+        assert path == str(tmp_path / "port" / rel)
+        j_fn(str(tmp_path / "jax.npz"), **j_kw)
+        with np.load(tmp_path / "jax.npz") as a, np.load(path) as b:
+            assert a.files == b.files
+            for key in a.files:
+                assert np.array_equal(a[key], b[key]), (rel, key)
+
+
 @pytest.mark.parametrize("name,kw", [
     ("generate_bouncing_ball_dataset", dict(seq_len=12, box_size=32.0)),
     ("generate_falling_ball_dataset", dict(seq_len=8)),

@@ -49,12 +49,14 @@ def test_scan_sees_the_port():
                  ("parallel", "mesh.py"), ("data", "native.py"),
                  ("utils", "flops.py"), ("tools", "__init__.py"),
                  ("tools", "fit_physics.py"), ("tools", "slot_rescue.py"),
-                 ("tools", "analyze_tail.py"), ("tools", "seed_sweep.py")):
+                 ("tools", "analyze_tail.py"), ("tools", "seed_sweep.py"),
+                 ("tools", "reference_runs.py")):
         assert os.path.join("paig_reproduction_tpu_torch", *path) in names
 
 
 @pytest.mark.parametrize("name", ["fit_physics", "slot_rescue",
-                                  "analyze_tail", "seed_sweep"])
+                                  "analyze_tail", "seed_sweep",
+                                  "reference_runs"])
 def test_tools_import_no_jax_when_run(name):
     """Each tool, run with --help in a fresh interpreter, has loaded no
     module of JAX or of the JAX package by its parser (the imports inside

@@ -21,7 +21,8 @@ from paig_reproduction_tpu.models.physics_net import (
     compute_losses as jax_losses,
 )
 from paig_reproduction_tpu_torch.convert import flax_to_state_dict
-from paig_reproduction_tpu_torch.models import PhysicsNet, compute_losses
+from paig_reproduction_tpu_torch.models import (PhysicsNet, compute_losses,
+                                                jax_init)
 from paig_reproduction_tpu_torch.models.physics_net import CELL_PARAMS
 
 UNITS = 16
@@ -143,11 +144,13 @@ def test_gradients_match_jax_gate_by_gate(jax_lstm):
 
 
 def test_init_follows_flax(jax_lstm):
-    """The port's own initialisation has flax's distributions: input
+    """The port's initialisation (``models/jax_init.py``, the CLI's
+    ``--seed``) has flax's distributions: input
     kernels LeCun-normal (a normal truncated at two deviations, variance
     1/fan_in), recurrent kernels orthogonal per gate, biases zero."""
-    model = PhysicsNet(lstm_layers=jax_lstm["layers"],
-                       generator=torch.Generator().manual_seed(0), **KW)
+    model = jax_init.load_initial_state(
+        PhysicsNet(lstm_layers=jax_lstm["layers"], **KW),
+        jax_init.prng_key(0))
     for i in range(jax_lstm["layers"]):
         cell = model.get_submodule(f"lstm_{i}")
         fan_in = cell.input_size

@@ -25,7 +25,8 @@ from paig_reproduction_tpu.models.physics_net import (
     compute_losses as jax_losses,
 )
 from paig_reproduction_tpu_torch.convert import flax_to_state_dict
-from paig_reproduction_tpu_torch.models import PhysicsNet, compute_losses
+from paig_reproduction_tpu_torch.models import (PhysicsNet, compute_losses,
+                                                jax_init)
 from paig_reproduction_tpu_torch.models.physics_net import EXTENSION_DEFAULTS
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -147,8 +148,8 @@ def test_decoder_backends_agree_on_cpu(jax_reference):
     x = torch.from_numpy(jax_reference["inp"])
     outs = []
     for backend in ("xla", "auto", "pallas"):
-        model = PhysicsNet(decoder_backend=backend,
-                           generator=torch.Generator().manual_seed(0), **KW)
+        model = jax_init.load_initial_state(
+            PhysicsNet(decoder_backend=backend, **KW), jax_init.prng_key(0))
         with torch.no_grad():
             outs.append(model(x)[0])
     assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])

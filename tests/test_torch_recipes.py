@@ -8,6 +8,7 @@ Tolerances: the rendered offsets within 1e-3 px and the installed physics
 within 1e-4 relative (f32 forwards in another summation order, then the
 same numpy fit); the stall guard's decisions exactly.
 """
+import inspect
 import logging
 import os
 import re
@@ -115,6 +116,63 @@ def test_recipe_cli_runs_every_hook_and_resumes(tmp_path, paig_log,
     assert resumed.step == trainer.step + 4
 
 
+# A recipe run whose every valid eval is stalled (an LR of 1e-9 keeps the
+# recons flat), so that a rescue fires at each segment's first loop epoch.
+RESCUE_RUN = ["--task=spring_color", "--batch_size=8", "--base_lr=1e-9",
+              "--autoencoder_loss=3.0", "--color", "--discovery_restarts=1",
+              "--discovery_epochs=1", "--auto_rescue=1", "--rescue_recons=0",
+              "--max_rescues=2", "--eval_every_n_epochs=1",
+              "--save_every_n_epochs=1"]
+
+
+def test_resumed_rescue_schedule_matches_jax(tmp_path, paig_log,
+                                             monkeypatch):
+    """RESCUE_RUN at --epochs=2 (the arm's epoch, then one loop epoch), then
+    resumed with --epochs=4 --use_ckpt --resume_remaining_epochs, through
+    both packages' CLIs on the same files: each rescue rebuilds the same
+    LR schedule in both (its horizon, steps and anneal, and its LR at every
+    step, within float32 rounding), the resumed one over 4 less the loop
+    epoch it fires at, as the JAX trainer sizes it. The resumed run's
+    length is the one deliberate departure (``cli.epochs_to_train``): the
+    port counts the arm's epoch among the chain's, the JAX CLI does not."""
+    from paig_reproduction_tpu import cli as jax_cli
+    from paig_reproduction_tpu.train import optimizers as jax_opt
+    from paig_reproduction_tpu_torch.train import optimizers as opt
+
+    monkeypatch.setenv("PAIG_VIZ_EXAMPLES", "1")
+    monkeypatch.setenv("PAIG_COMPILE_CACHE", "0")
+    _tiny_data(tmp_path, n_eval=8)
+    schedules, messages = {}, {}
+    for name, main, lib, extra in (("port", cli.main, opt, ["--device=cpu"]),
+                                   ("jax", jax_cli.main, jax_opt, [])):
+        calls = schedules[name] = []
+
+        def record(*args, make=lib.lr_schedule, calls=calls):
+            if any(f.function == "_do_auto_rescue"
+                   for f in inspect.stack(0)):
+                calls.append((args, make(*args)))
+            return make(*args)
+
+        monkeypatch.setattr(lib, "lr_schedule", record)
+        argv = RESCUE_RUN + extra + [f"--data_dir={tmp_path}",
+                                     f"--save_dir={tmp_path / name}"]
+        main(argv + ["--epochs=2"])
+        main(argv + ["--epochs=4", "--use_ckpt", "--resume_remaining_epochs"])
+        messages[name] = [r.getMessage() for r in paig_log.records]
+        paig_log.clear()
+    port, ref = schedules["port"], schedules["jax"]
+    assert [a for a, _ in port] == [a for a, _ in ref] == [
+        (1e-9, 1, 2, True), (1e-9, 3, 2, True)]
+    for (args, lr), (_, ref_lr) in zip(port, ref):
+        steps = range(args[1] * args[2] + 2)
+        assert [lr(s) for s in steps] == pytest.approx(
+            [float(ref_lr(s)) for s in steps], rel=1e-7)
+    resumed = "resume_remaining_epochs: checkpoint chain has %d epochs " \
+        "done, training %d more"
+    assert resumed % (2, 2) in messages["port"]
+    assert resumed % (1, 3) in messages["jax"]
+
+
 def _trainer(tmp_path, **fields):
     _tiny_data(tmp_path)
     model = PhysicsNet(**KW, **fields)
@@ -129,10 +187,17 @@ def _trainer(tmp_path, **fields):
 
 
 def test_discovery_arms(tmp_path, paig_log, monkeypatch):
-    """Arm 0 starts from the plain run's weights, the others from their own
-    generators; a NaN arm never wins; the iterator is rewound."""
+    """Each arm starts from the JAX package's weights of that arm (its
+    ``model.init`` at ``PRNGKey(seed)`` for arm 0, at ``fold_in(PRNGKey(seed),
+    arm)`` for the others), bit for bit; a NaN arm never wins; the iterator
+    is rewound."""
     trainer = _trainer(tmp_path)
-    plain = PhysicsNet(**KW, generator=torch.Generator().manual_seed(3))
+    x = np.zeros((1, 12, 3, 32, 32), np.float32)
+    jax_model = JaxPhysicsNet(**KW)
+    jax_starts = [flax_to_state_dict(jax.device_get(jax.jit(jax_model.init)(
+        jax.random.PRNGKey(3) if arm == 0 else jax.random.fold_in(
+            jax.random.PRNGKey(3), arm), x)["params"])) for arm in range(3)]
+    plain = jax_starts[0]
     starts = []
     monkeypatch.setattr(trainer, "_train_epochs_raw", lambda *a: starts.append(
         {k: v.clone() for k, v in trainer.model.state_dict().items()}))
@@ -140,8 +205,10 @@ def test_discovery_arms(tmp_path, paig_log, monkeypatch):
     monkeypatch.setattr(trainer, "_quick_valid_recons",
                         lambda *a: next(scores))
     assert trainer.run_discovery_restarts(4, 3, 1)[1:] == [7.0, 9.0]
-    for k, v in plain.state_dict().items():
-        assert torch.equal(starts[0][k], v)
+    for arm, want in enumerate(jax_starts):
+        for k, v in want.items():
+            assert torch.equal(starts[arm][k], v.reshape(
+                starts[arm][k].shape)), (arm, k)
     assert not torch.equal(starts[1]["encoder.dense.0.weight"],
                            starts[0]["encoder.dense.0.weight"])
     for k, v in trainer.model.state_dict().items():
@@ -182,6 +249,74 @@ def _jax_host(model, params, iterator):
     host._rendered_offsets = lambda: jax_recipes.RecipeMixin.\
         _rendered_offsets(host)
     return host
+
+
+@pytest.mark.parametrize("weights", ["spring500", "seed1"])
+def test_auto_rescue_matches_jax(tmp_path, spring500, paig_log, monkeypatch,
+                                 weights):
+    """The in-training rescue (--auto_rescue) of both packages on the same
+    weights and train frames: the same log line (slot health, salience,
+    the slots reset), the same parameters after the surgery (within 1e-6
+    of the largest: numpy sums over the two packages' kernel layouts), and
+    the optimizer rebuilt with the background frozen and the LR schedule
+    over the same horizon. On runs/spring500's trained weights and on the
+    JAX package's seed-1 initial weights (spring_one5 at seed 1, whose
+    rescues on the card did not part the objects)."""
+    from paig_reproduction_tpu.train import optimizers as jax_opt
+    from paig_reproduction_tpu_torch.train import optimizers as opt
+
+    if weights == "spring500":
+        params = spring500["params"]
+    else:
+        params = jax.device_get(jax.jit(JaxPhysicsNet(**KW).init)(
+            jax.random.PRNGKey(1), np.zeros((1, 12, 3, 32, 32),
+                                            np.float32))["params"])
+    trainer = _trainer(tmp_path)
+    trainer.model.load_state_dict(
+        {k: v.reshape(trainer.model.state_dict()[k].shape)
+         for k, v in flax_to_state_dict(params).items()}, strict=False)
+    trainer.step = 100
+    host = types.SimpleNamespace(
+        model=JaxPhysicsNet(**KW), params=dict(params),
+        train_iterator=types.SimpleNamespace(
+            raw_uint8=trainer.train_iterator.raw_uint8), step=100,
+        rescue_disk_radius=0.0, rescue_seed_color=False, rescue_recons=3.0,
+        max_rescues=1, _rescue_count=0, _epochs_consumed=0,
+        _opt_args=dict(optimizer="rmsprop", epochs=4, steps_per_epoch=4,
+                       physics_lr_mult=1.0, grad_clip=0.0),
+        base_lr=6e-4, anneal_lr=True, _compile_steps=lambda **kw: None)
+    rebuilt = {}
+    for name, lib in (("port", opt), ("jax", jax_opt)):
+        calls = rebuilt[name] = []
+
+        def schedule(*args, make=lib.lr_schedule, calls=calls):
+            calls.append(args)
+            return make(*args)
+
+        def build(*args, make=lib.build_optimizer, calls=calls, **kwargs):
+            calls.append(kwargs["bg_lr_mult"])
+            return make(*args, **kwargs)
+
+        monkeypatch.setattr(lib, "lr_schedule", schedule)
+        monkeypatch.setattr(lib, "build_optimizer", build)
+    lines = []
+    for rescue in (lambda: trainer._do_auto_rescue(2, 10.0),
+                   lambda: jax_recipes.RecipeMixin._do_auto_rescue(
+                       host, 2, 10.0)):
+        paig_log.clear()
+        rescue()
+        lines.append([r.getMessage() for r in paig_log.records
+                      if r.getMessage().startswith("auto_rescue: epoch")])
+    assert len(lines[0]) == 1 and lines[0] == lines[1]
+    assert rebuilt["port"] == rebuilt["jax"] == [(6e-4, 2, 4, True), 0.0]
+    assert trainer._rescue_count == host._rescue_count == 1
+    want = flax_to_state_dict(jax.device_get(host.params))
+    state = trainer.model.state_dict()
+    scale = max(float(v.abs().max()) for v in want.values())
+    for k, v in want.items():
+        np.testing.assert_allclose(state[k].reshape(v.shape).numpy(),
+                                   v.numpy(), rtol=0, atol=1e-6 * scale,
+                                   err_msg=k)
 
 
 def test_physics_self_identification_matches_jax(tmp_path, spring500,

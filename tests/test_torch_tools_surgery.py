@@ -12,9 +12,10 @@ writes, and the port's seed_sweep tool.
 * The trainer restores that checkpoint with the model's parameters as
   written, the optimizer's state fresh, and the partial restore's logged
   notice.
-* ``seed_sweep`` (port only: the two packages draw their initial weights
-  differently): 2 seeds, 1 epoch at B=8 on a cut copy of the spring file;
-  each seed's metrics equal, exactly, a direct Trainer run with that seed.
+* ``seed_sweep``: 2 seeds, 1 epoch at B=8 on a cut copy of the spring
+  file; each seed's metrics equal, exactly, a direct Trainer run from the
+  JAX package's initial weights at that seed (``models/jax_init.py``, as
+  the CLI's ``--seed``).
 """
 import importlib.util
 import json
@@ -28,7 +29,7 @@ import torch
 
 from paig_reproduction_tpu_torch.convert import flax_checkpoint_to_port
 from paig_reproduction_tpu_torch.data.iterators import get_iterators
-from paig_reproduction_tpu_torch.models import PhysicsNet
+from paig_reproduction_tpu_torch.models import PhysicsNet, jax_init
 from paig_reproduction_tpu_torch.tools import seed_sweep, slot_rescue
 from paig_reproduction_tpu_torch.train import checkpoint
 from paig_reproduction_tpu_torch.train.trainer import Trainer
@@ -123,8 +124,8 @@ def test_trainer_restores_a_rescued_checkpoint(tmp_path, capsys, caplog,
     model = PhysicsNet(task="spring_color", cell_type="spring_ode_cell",
                        seq_len=12, input_steps=4, pred_steps=6,
                        autoencoder_loss=3.0, color=True,
-                       input_size=32 * 32,
-                       generator=torch.Generator().manual_seed(1))
+                       input_size=32 * 32)
+    jax_init.load_initial_state(model, jax_init.prng_key(1))
     trainer = Trainer(model, device="cpu")
     trainer.build_optimizer(6e-4, "rmsprop", True, epochs=1,
                             steps_per_epoch=1)
@@ -170,8 +171,8 @@ def test_seed_sweep_equals_direct_trainer_runs(tmp_path, monkeypatch,
         model = PhysicsNet(
             task="spring_color", cell_type="spring_ode_cell", seq_len=12,
             input_steps=4, pred_steps=6, autoencoder_loss=3.0, color=True,
-            input_size=32 * 32,
-            generator=torch.Generator().manual_seed(seed))
+            input_size=32 * 32)
+        jax_init.load_initial_state(model, jax_init.prng_key(seed))
         its = get_iterators(str(tmp_path / "data" / "spring_color"
                                 / os.path.basename(SL12)), conv=True)
         trainer = Trainer(model, device="cpu", seed=seed)
