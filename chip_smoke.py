@@ -222,6 +222,12 @@ RECIPE_ARGS = TRAIN_ARGS + [
     "--discovery_recons_ok=4.0", "--aux_on_recons=1e9", "--fit_physics_every=1", "--auto_rescue=2",
     "--rescue_recons=0", "--max_rescues=1", "--eval_every_n_epochs=1",
     *RECIPE_MODEL_FLAGS, "--save_every_n_epochs=1"]
+# bf16 with the recipe's enhancers (benchmarks/spring_bf16_test_log.txt's
+# model flags), cut to one discovery arm of one epoch and one loop epoch,
+# each eval with the enhancers.
+BF16_RECIPE_ARGS = TRAIN_ARGS + [
+    "--compute_dtype=bfloat16", "--epochs=2", "--discovery_restarts=1",
+    "--discovery_epochs=1", "--eval_every_n_epochs=1", *RECIPE_MODEL_FLAGS]
 # The other four tasks, each at B=100 and full width with the model flags
 # of the logged recipe `log` (its epoch count and its discovery, trigger and
 # rescue flags cut), `extra` flags that cut its depth, `epochs`, and for a
@@ -1012,6 +1018,50 @@ def refinement_launches():
         CapturedStep.__init__ = init
 
 
+def counted_cli(argv):
+    """The CLI entry with `argv` on the card, every kernel launch counted
+    and the Gauss-Newton refinement's apart. Returns (the training
+    Trainer, the seq-30 phase's, wall s, launches, the refinement's
+    launches)."""
+    import torch
+    from paig_reproduction_tpu_torch import cli
+    from paig_reproduction_tpu_torch.ops.cuda import st_decoder as sd
+
+    with refinement_launches() as refine_count, cli_run():
+        sd.LAUNCHES = 0
+        t0 = time.perf_counter()
+        trainer, test_trainer = cli.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        return (trainer, test_trainer, seconds, sd.LAUNCHES,
+                refine_count())
+
+
+def check_recipe_launches(name, log_path, trainer, test_trainer, launches,
+                          refine_launches, arms, loop_epochs, batch_size):
+    """A recipe run (`arms` discovery arms of one epoch, `loop_epochs`, an
+    eval every epoch) launched the kernel on every decode: as many
+    launches as recipe_counts and recipe_decodes expect, the refinement's
+    too; raises otherwise."""
+    counts = recipe_counts(
+        log_path, arms=arms, arm_epochs=1, loop_epochs=loop_epochs,
+        steps_per_epoch=trainer.train_iterator.num_examples // batch_size,
+        valid_batches=eval_batches(trainer.valid_iterator.num_examples,
+                                   batch_size),
+        test_batches=eval_batches(trainer.test_iterator.num_examples,
+                                  batch_size),
+        test30_batches=eval_batches(
+            test_trainer.test_iterator.num_examples, batch_size))
+    needed, needed_refine = recipe_decodes(*counts, REFINE_ITERS)
+    print(f"{name}: st_decode launches {launches} (expected {needed}: "
+          f"{counts[0]} train steps, {counts[1]} eval batches, {counts[2]} "
+          f"other forwards), of them in the Gauss-Newton refinement "
+          f"{refine_launches} (expected {needed_refine})")
+    if launches != needed or refine_launches != needed_refine:
+        raise AssertionError(f"the {name} did not decode through the "
+                             f"kernel on every decode")
+
+
 def recipe(batch_size=100):
     """The single-command spring recipe through the CLI entry at full
     width, with every hook asserted from log.txt and every decode counted;
@@ -1020,22 +1070,14 @@ def recipe(batch_size=100):
     import torch
     from paig_reproduction_tpu_torch import cli
     from paig_reproduction_tpu_torch.data.iterators import gather_batch
-    from paig_reproduction_tpu_torch.ops.cuda import st_decoder as sd
 
     save_dir = os.path.join(tempfile.mkdtemp(prefix="paig_recipe_"), "run")
     argv = RECIPE_ARGS + [f"--batch_size={batch_size}",
                           f"--data_dir={DATA_DIR}", f"--save_dir={save_dir}"]
-    with refinement_launches() as refine_count, cli_run():
-        sd.LAUNCHES = 0
-        t0 = time.perf_counter()
-        trainer, test_trainer = cli.main(argv)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        launches = sd.LAUNCHES
-        refine_launches = refine_count()
-    check_fused_line(os.path.join(save_dir, "log.txt"))
-
+    trainer, test_trainer, seconds, launches, refine_launches = \
+        counted_cli(argv)
     log_path = os.path.join(save_dir, "log.txt")
+    check_fused_line(log_path)
     with open(log_path) as f:
         log = f.read()
     for needle in ("discovery restart arm 1/2", "discovery restart arm 2/2",
@@ -1060,24 +1102,10 @@ def recipe(batch_size=100):
     if trainer._rescue_count != 1 or not trainer._aux_triggered:
         raise AssertionError("the rescue or the trigger did not fire")
 
-    spe = trainer.train_iterator.num_examples // batch_size
-    counts = recipe_counts(
-        log_path, arms=2, arm_epochs=1, loop_epochs=3, steps_per_epoch=spe,
-        valid_batches=eval_batches(trainer.valid_iterator.num_examples,
-                                   batch_size),
-        test_batches=eval_batches(trainer.test_iterator.num_examples,
-                                  batch_size),
-        test30_batches=eval_batches(
-            test_trainer.test_iterator.num_examples, batch_size))
-    needed, needed_refine = recipe_decodes(*counts, REFINE_ITERS)
-    print(f"recipe: {seconds:.3f} s wall; st_decode launches {launches} "
-          f"(expected {needed}: {counts[0]} train steps, {counts[1]} eval "
-          f"batches, {counts[2]} other forwards), of them in the "
-          f"Gauss-Newton refinement {refine_launches} (expected "
-          f"{needed_refine}); seq-30 phase {test30}")
-    if launches != needed or refine_launches != needed_refine:
-        raise AssertionError("the recipe did not decode through the kernel "
-                             "on every decode")
+    check_recipe_launches("recipe", log_path, trainer, test_trainer,
+                          launches, refine_launches, arms=2, loop_epochs=3,
+                          batch_size=batch_size)
+    print(f"recipe: {seconds:.3f} s wall; seq-30 phase {test30}")
     check_artifacts(save_dir)
 
     # The recipe's train step, and an eval batch with and without the
@@ -1109,6 +1137,42 @@ def recipe(batch_size=100):
     return dict(launches=launches, refine_launches=refine_launches,
                 seconds=seconds, step_ms=step, eval_ms=eval_on,
                 eval_plain_ms=eval_off)
+
+
+def bf16_recipe(batch_size=100):
+    """bf16 with the recipe's enhancers through the CLI entry
+    (BF16_RECIPE_ARGS): the arm, the loop epoch, the evals with the
+    enhancers and the seq-30 phase, every decode counted exactly. Returns
+    the phase's numbers."""
+    save_dir = os.path.join(tempfile.mkdtemp(prefix="paig_bf16r_"), "run")
+    argv = BF16_RECIPE_ARGS + [f"--batch_size={batch_size}",
+                               f"--data_dir={DATA_DIR}",
+                               f"--save_dir={save_dir}"]
+    trainer, test_trainer, seconds, launches, refine_launches = \
+        counted_cli(argv)
+    log_path = os.path.join(save_dir, "log.txt")
+    check_fused_line(log_path)
+    with open(log_path) as f:
+        if "discovery restart arm 1/1: valid recons" not in f.read():
+            raise AssertionError("the bf16 recipe ran no discovery arm")
+    train_losses, eval_losses, test30 = read_log(log_path)
+    if not all(math.isfinite(v) for v in train_losses + eval_losses):
+        raise AssertionError("a logged loss of the bf16 recipe is not finite")
+    if test30 is None or not all(math.isfinite(v) for v in test30.values()):
+        raise AssertionError("the bf16 recipe's seq-30 phase logged no "
+                             "finite 'test - epoch=0' line")
+    for t in (trainer, test_trainer):
+        if not (t.model.init_state_fit
+                and t.model.refine_recons_pos == REFINE_ITERS
+                and t.model.compute_dtype == "bfloat16"):
+            raise AssertionError("a bf16 recipe eval ran without bf16 or "
+                                 "the enhancers")
+    check_recipe_launches("bf16 recipe", log_path, trainer, test_trainer,
+                          launches, refine_launches, arms=1, loop_epochs=1,
+                          batch_size=batch_size)
+    print(f"bf16 recipe: {seconds:.3f} s wall; seq-30 phase {test30}")
+    return dict(launches=launches, refine_launches=refine_launches,
+                seconds=seconds, test30=test30)
 
 
 def variant(extra, batch_size=100):
@@ -2436,6 +2500,7 @@ def kernels_line(launches, max_err, timings, jvp, runs):
             "test", "valid10_pred", "last_pred", "wall_s", "steps",
             "eval_s", "step_ms")},
         "bf16_launches": runs["bf16"]["launches"],
+        "bf16_recipe_launches": runs["bf16"]["recipe"]["launches"],
         "runtime_launches": runs["runtime"]["launches"],
         "native_loader_launches": runs["native"]["launches"],
         "native_loader_fused_launches": runs["native"]["fused_launches"],
@@ -2560,6 +2625,7 @@ def main(argv=None):
         bf16, bf16_trainer = variant(BF16_ARGS)
         bf16["enc_pos_err"] = check_bf16(bf16_trainer)
         del bf16_trainer
+        bf16["recipe"] = bf16_recipe()
         print(f"bf16 on {smi}: median train step {bf16['step_ms']:.2f} ms "
               f"against float32's {ms:.2f} ms (step phase), seq-30 phase "
               f"alone {bf16['seq30_s']:.3f} s, {bf16['launches']} launches")

@@ -27,8 +27,12 @@ A run cut by a time limit after its discovery arms
 checkpoint with ``--use_ckpt --resume_remaining_epochs`` by the same
 command; one cut inside its arms (no checkpoint yet: the arms save none)
 starts over, and the runner says so. ``--compare DIR`` only reads a
-finished run's ``log.txt`` against the log. It runs on the card; without
-a CUDA device it raises unless ``--device=cpu`` is given.
+finished run's ``log.txt`` against the log; given several save_dirs of
+one run, it then prints how many met the bars. ``--seed N`` replaces the
+logged ``--seed=0`` and nothing else; the run's ``reference_run.json``
+records it, and a resume at another seed is refused. The logs are the JAX
+package's seed-0 runs. It runs on the card; without a CUDA device it
+raises unless ``--device=cpu`` is given.
 """
 from __future__ import annotations
 
@@ -142,14 +146,21 @@ def parse_log(path) -> dict:
     rescues' epochs, the ``fit_physics:`` (k, equil) fits, the flag
     ``header`` (the ``--`` lines after the first line naming the entry
     script) and ``segments`` (1, and 1 more for each resume the runner
-    marked: its loop epochs count on from the checkpoint's)."""
+    marked: its loop epochs count on from the checkpoint's). A timestamped
+    line seen before is skipped: the thinned JAX logs repeat their first
+    lines after the flag header."""
     out = dict(test=None, test_epoch=None, valid={}, arms=[], trigger=None,
                rescues=[], fits=[], header=[], segments=1)
     offset = 0
     in_header = False
+    seen = set()
     with open(path, errors="replace") as f:
         for line in f:
             line = line.rstrip("\n")
+            if " - paig - " in line:
+                if line in seen:
+                    continue
+                seen.add(line)
             if in_header:
                 if line.startswith("--"):
                     out["header"].append(line)
@@ -188,6 +199,13 @@ def parse_log(path) -> dict:
             if m:
                 out["fits"].append((float(m.group(1)), float(m.group(2))))
     return out
+
+
+def run_argv(name, seed=0) -> list:
+    """Run ``name``'s logged argv with its ``--seed=0`` replaced by
+    ``--seed=<seed>``."""
+    return [f"--seed={seed}" if a == "--seed=0" else a
+            for a in RUNS[name]["argv"]]
 
 
 def log_path(name) -> str:
@@ -301,8 +319,8 @@ def _on_term(signum, frame):
     raise _Terminated()
 
 
-def run(name, save_dir, device="cuda", data_dir=None):
-    """Runs (or resumes, or finishes) reference run ``name`` in
+def run(name, save_dir, device="cuda", data_dir=None, seed=0):
+    """Runs (or resumes, or finishes) reference run ``name`` at ``seed`` in
     ``save_dir`` through the port's CLI. Returns ``compare``'s result."""
     import torch
     from paig_reproduction_tpu_torch import cli
@@ -314,13 +332,20 @@ def run(name, save_dir, device="cuda", data_dir=None):
     spec = RUNS[name]
     task = flag(spec["argv"], "task")
     data_dir = data_dir or data_dir_for(task)
-    gen_s = ensure_data(task, data_dir)
     decision = resume_decision(save_dir)
-    argv = spec["argv"] + [f"--save_dir={save_dir}", f"--data_dir={data_dir}",
-                           f"--device={device}"]
+    if decision in ("resume", "test", "done"):
+        had = _read_sidecar(save_dir).get("seed", 0)
+        if had != seed:
+            raise SystemExit(f"reference_runs: {name} in {save_dir} ran at "
+                             f"seed {had}; refusing to go on at seed {seed}")
+    gen_s = ensure_data(task, data_dir)
+    argv = run_argv(name, seed) + [f"--save_dir={save_dir}",
+                                   f"--data_dir={data_dir}",
+                                   f"--device={device}"]
     record = (_read_sidecar(save_dir) if decision in ("resume", "test")
               else {"segments": []})
     record["data_dir"] = data_dir
+    record["seed"] = seed
     if decision == "done":
         print(f"reference_runs: {name} in {save_dir} is finished")
         return compare(name, save_dir, data_dir)
@@ -416,7 +441,8 @@ def compare(name, save_dir, data_dir=None) -> dict:
     data_dir = data_dir or side.get("data_dir") or data_dir_for(task)
     segs = side["segments"]
     out = dict(
-        run=name, port_test=port["test"], log_test=ref["test"],
+        run=name, seed=side.get("seed", 0), port_test=port["test"],
+        log_test=ref["test"],
         bars=bars, port_pass=passes(port["test"]),
         log_pass=passes(ref["test"]), arms=port["arms"],
         log_arms=ref["arms"], trigger=port["trigger"],
@@ -442,8 +468,9 @@ def compare(name, save_dir, data_dir=None) -> dict:
         return ("none" if t is None else
                 " ".join(f"{k}={t[k]:.4f}" for k in KEYS))
 
-    line = (f"reference_runs: {name}: port test {fmt(port['test'])} | log "
-            f"test {fmt(ref['test'])} | bars "
+    line = (f"reference_runs: {name}: port (seed {out['seed']}) test "
+            f"{fmt(port['test'])} | log (its seed-0 run) test "
+            f"{fmt(ref['test'])} | bars "
             + " ".join(f"{k}<{v}" for k, v in bars.items())
             + f": port {'pass' if out['port_pass'] else 'miss'}, log "
             f"{'pass' if out['log_pass'] else 'miss'} | wall "
@@ -462,27 +489,77 @@ def compare(name, save_dir, data_dir=None) -> dict:
     return out
 
 
+def mann_whitney(x, y) -> tuple:
+    """The two-sided Mann-Whitney rank test of samples x and y: U counts
+    the pairs in which x's value is the larger (a tie a half), and p comes
+    from the normal approximation with the tie and continuity corrections
+    (scipy.stats.mannwhitneyu's asymptotic method)."""
+    import collections
+    import math
+    n1, n2 = len(x), len(y)
+    n = n1 + n2
+    u = sum((a > b) + 0.5 * (a == b) for a in x for b in y)
+    ties = sum(c ** 3 - c for c in collections.Counter(x + y).values())
+    var = n1 * n2 / 12 * ((n + 1) - ties / (n * (n - 1)))
+    z = max(0.0, abs(u - n1 * n2 / 2) - 0.5) / math.sqrt(var)
+    return float(u), math.erfc(z / math.sqrt(2))
+
+
+def compare_many(name, save_dirs, data_dir=None) -> dict:
+    """``compare`` of each of run ``name``'s save_dirs, then one line: how
+    many met the bars, each run's seed, best arm and test pred / recons,
+    and the rank test (``mann_whitney``) of all the runs' arms against the
+    log's. Returns the count, the test and the runs' results."""
+    runs = [compare(name, d, data_dir) for d in save_dirs]
+    met = sum(r["port_pass"] for r in runs)
+    arms = [a for r in runs for a in r["arms"]]
+    log_arms = runs[0]["log_arms"]
+    # A run without discovery arms (lstm_proof) has nothing to rank.
+    u, p = (mann_whitney(arms, log_arms) if arms and log_arms
+            else (float("nan"), float("nan")))
+
+    def summary(r):
+        best = "none" if not r["arms"] else f"{min(r['arms']):.3f}"
+        test = ("none" if r["port_test"] is None else
+                f"{r['port_test']['pred']:.4f} / "
+                f"{r['port_test']['recons']:.4f}")
+        return (f"seed {r['seed']}: best arm {best}, test pred / recons "
+                f"{test}")
+
+    print(f"reference_runs: {name}: {met} of {len(runs)} runs met the bars; "
+          + "; ".join(summary(r) for r in runs)
+          + f" | arms: the port's {len(arms)} against the log's "
+          f"{len(log_arms)}, Mann-Whitney U={u:g}, p={p:.4f}", flush=True)
+    return dict(met=met, mann_whitney=(u, p), runs=runs)
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--run", required=True, choices=sorted(RUNS))
     p.add_argument("--save_dir", default="",
                    help="the run's save_dir (outside the repository, or "
                         "under a gitignored directory)")
-    p.add_argument("--compare", default="",
-                   help="only read this finished run's log.txt against "
-                        "the log")
+    p.add_argument("--compare", nargs="+", default=[],
+                   help="only read these finished runs' log.txt against "
+                        "the log, then count those that met the bars")
     p.add_argument("--data_dir", default="",
                    help="the task's files (default: the tracked ones, or "
                         "the presets' written under " + os.path.relpath(
                             GENERATED_DATA, REPO) + ")")
     p.add_argument("--device", default="cuda",
                    help="torch device (cuda; cpu only for small tests)")
+    p.add_argument("--seed", type=int, default=0,
+                   help="replaces the logged --seed=0 (the initial weights "
+                        "and shuffles)")
     args = p.parse_args(argv)
+    if len(args.compare) == 1:
+        return compare(args.run, args.compare[0], args.data_dir or None)
     if args.compare:
-        return compare(args.run, args.compare, args.data_dir or None)
+        return compare_many(args.run, args.compare, args.data_dir or None)
     if not args.save_dir:
         p.error("--save_dir is required unless --compare is given")
-    return run(args.run, args.save_dir, args.device, args.data_dir or None)
+    return run(args.run, args.save_dir, args.device, args.data_dir or None,
+               args.seed)
 
 
 if __name__ == "__main__":

@@ -83,15 +83,14 @@ def _tiny_data(tmp_path, n_train=8):
                      valid_x=d["valid_x"][:4], test_x=d["test_x"][:4])
 
 
-def test_recipe_launches_count_a_recipe_run(tmp_path, monkeypatch):
-    """chip_smoke.py's recipe flags, run tiny on the CPU (8 train, 4 valid
-    and 4 test sequences, B=4): the kernel's wrapper is called as often as
-    recipe_counts and recipe_decodes say the card's run launches it, the
-    refinement's calls included, and every hook fires. Every train chunk
-    and eval batch runs through a stand-in graph
-    (tests/test_torch_chunk.py), and the counts that replays advance (the
-    wrapper's, and chip_smoke.refinement_launches's, as chip_smoke.recipe
-    counts on the card) are the same."""
+def _counted_recipe_run(tmp_path, monkeypatch, smoke_argv):
+    """``smoke_argv`` run tiny on the CPU (8 train, 4 valid and 4 test
+    sequences, B=4) with every train chunk and eval batch through a
+    stand-in graph (tests/test_torch_chunk.py). Returns the trainers, the
+    save_dir, the kernel wrapper's calls and the refinement's share of
+    each call of it, after checking that the counts that replays advance
+    (the wrapper's, and chip_smoke.refinement_launches's, as the card's
+    phases count) agree with the calls."""
     import logging
 
     from test_torch_chunk import FakeStep
@@ -125,7 +124,7 @@ def test_recipe_launches_count_a_recipe_run(tmp_path, monkeypatch):
 
     monkeypatch.setattr(physics_net, "refine_positions", counted_refine)
     monkeypatch.setenv("PAIG_VIZ_EXAMPLES", "1")
-    argv = [a for a in chip_smoke.RECIPE_ARGS if a != "--device=cuda"]
+    argv = [a for a in smoke_argv if a != "--device=cuda"]
     save_dir = tmp_path / "run"
     logger = logging.getLogger("paig")
     handlers = list(logger.handlers)
@@ -138,6 +137,21 @@ def test_recipe_launches_count_a_recipe_run(tmp_path, monkeypatch):
         for h in set(logger.handlers) - set(handlers):
             logger.removeHandler(h)
             h.close()
+    assert sum(s.replays for s in FakeStep.made) > 0
+    assert tkernel.LAUNCHES == len(calls)
+    assert refine_count() == sum(in_refine)
+    chip_smoke.check_fused_line(save_dir / "log.txt",
+                                "fused step: on (captured CUDA graph)")
+    return trainer, test_trainer, save_dir, calls, in_refine
+
+
+def test_recipe_launches_count_a_recipe_run(tmp_path, monkeypatch):
+    """chip_smoke.py's recipe flags, run tiny on the CPU: the kernel's
+    wrapper is called as often as recipe_counts and recipe_decodes say the
+    card's run launches it, the refinement's calls included, and every
+    hook fires."""
+    trainer, test_trainer, save_dir, calls, in_refine = _counted_recipe_run(
+        tmp_path, monkeypatch, chip_smoke.RECIPE_ARGS)
     counts = chip_smoke.recipe_counts(
         save_dir / "log.txt", arms=2, arm_epochs=1, loop_epochs=3,
         steps_per_epoch=2, valid_batches=1, test_batches=1, test30_batches=1)
@@ -146,16 +160,40 @@ def test_recipe_launches_count_a_recipe_run(tmp_path, monkeypatch):
     assert len(calls) == launches
     assert sum(in_refine) == refine_launches
     assert set(in_refine) == {chip_smoke.REFINE_ITERS}
-    assert sum(s.replays for s in FakeStep.made) > 0
-    assert tkernel.LAUNCHES == launches
-    assert refine_count() == refine_launches
-    chip_smoke.check_fused_line(save_dir / "log.txt",
-                                "fused step: on (captured CUDA graph)")
     log = (save_dir / "log.txt").read_text()
     for needle in ("discovery restart arm 2/2", "aux_on_recons trigger: ",
                    "- fit_physics: "):
         assert needle in log
     assert test_trainer.model.refine_recons_pos == chip_smoke.REFINE_ITERS
+    assert trainer.train_net.refine_recons_pos == 0
+
+
+def test_bf16_recipe_launches_count_a_cli_run(tmp_path, monkeypatch):
+    """chip_smoke.py's bf16 recipe (bf16 with the enhancers of
+    spring_bf16_one1's logged argv; one arm of one epoch, one loop epoch),
+    run tiny on the CPU: the wrapper is called as recipe_counts and
+    recipe_decodes say, and every eval model runs in bf16 with the
+    enhancers."""
+    from paig_reproduction_tpu_torch.tools.reference_runs import RUNS
+
+    logged = RUNS["spring_bf16_one1"]["argv"]
+    for flag in ["--compute_dtype=bfloat16"] + chip_smoke.RECIPE_MODEL_FLAGS:
+        assert flag in logged and flag in chip_smoke.BF16_RECIPE_ARGS, flag
+    trainer, test_trainer, save_dir, calls, in_refine = _counted_recipe_run(
+        tmp_path, monkeypatch, chip_smoke.BF16_RECIPE_ARGS)
+    counts = chip_smoke.recipe_counts(
+        save_dir / "log.txt", arms=1, arm_epochs=1, loop_epochs=1,
+        steps_per_epoch=2, valid_batches=1, test_batches=1, test30_batches=1)
+    assert counts == (4, 5, 4)
+    launches, refine_launches = chip_smoke.recipe_decodes(
+        *counts, chip_smoke.REFINE_ITERS)
+    assert (len(calls), sum(in_refine)) == (launches, refine_launches)
+    assert "discovery restart arm 1/1: valid recons" in \
+        (save_dir / "log.txt").read_text()
+    for model in (trainer.model, test_trainer.model):
+        assert model.compute_dtype == "bfloat16"
+        assert model.init_state_fit == 3
+        assert model.refine_recons_pos == chip_smoke.REFINE_ITERS
     assert trainer.train_net.refine_recons_pos == 0
 
 
@@ -490,7 +528,8 @@ def test_kernels_line_has_every_phase(capsys):
             launches=11430, test={"pred": 19.0}, log_test={"pred": 19.16},
             limits={"pred": 21.08}, valid10_pred=20.3, last_pred=19.2,
             wall_s=200.0, steps=3750, eval_s=90.0, step_ms=23.3),
-        bf16=dict(launches=130), runtime=dict(launches=30),
+        bf16=dict(launches=130, recipe=dict(launches=100)),
+        runtime=dict(launches=30),
         native=dict(launches=130, fused_launches=130),
         graph=dict(param_rel=0.0, bitwise=True, eval_rel=0.0, steps={}),
         pipeline={"discovery": dict(seconds=1.0, launches=2818),
@@ -508,6 +547,7 @@ def test_kernels_line_has_every_phase(capsys):
     assert kernel["native_loader_fused_launches"] == 130
     assert kernel["task_launches"] == {"3bp_color": 72}
     assert kernel["lstm_launches"] == 11430
+    assert kernel["bf16_recipe_launches"] == 100
     assert kernel["lstm_proof"]["test"] == {"pred": 19.0}
     assert kernel["lstm_proof"]["steps"] == 3750
     # Only numbers measured in the run: the log's and the limits derived

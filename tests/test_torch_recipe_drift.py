@@ -1,4 +1,4 @@
-"""The spring recipe's train step, 50 steps at B=8, against the JAX
+"""The spring recipe's train step, 10 steps at B=8, against the JAX
 package's from the same initial weights (the CLI's ``--seed=0``: the JAX
 package's) on the same batches: how far the two trajectories part, beside
 how far the JAX step parts from itself when its initial weights move by one
@@ -15,6 +15,11 @@ by more. The two trajectories stay as close as the JAX step stays to
 itself, and the losses part no further than the JAX step's from itself
 (and under 1e-2): no fault of the port, and no way for a port to repeat
 the log's arms epoch by epoch.
+
+Ten steps are enough to show it: the comparison holds from step 3 on,
+and at step 10 (parameters 5.6e-2 against 1.1e-1 of the largest, losses
+2.3e-3 against 4.2e-3) its margins are those of step 50 (9.7e-2 against
+2.0e-1, the same losses), where the gaps have stopped growing (CPU).
 """
 import dataclasses
 import os
@@ -39,7 +44,7 @@ from paig_reproduction_tpu_torch.train.trainer import Trainer
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SL12 = os.path.join(REPO, "data", "datasets", "spring_color",
                     "color_spring_vx8_vy8_sl12_r2_k4_e6.npz")
-STEPS, BATCH, POOL = 50, 8, 64
+STEPS, BATCH, POOL = 10, 8, 64
 LOSS_RTOL = 1e-2
 PERTURBATION = 1e-7
 

@@ -125,16 +125,42 @@ RESCUE_RUN = ["--task=spring_color", "--batch_size=8", "--base_lr=1e-9",
               "--save_every_n_epochs=1"]
 
 
+# The logged recipe events: an arm scored after its epochs, the arm kept,
+# a rescue's loop epoch, a resume's epochs done and epochs to train.
+_EVENTS = {
+    "arm": re.compile(r"discovery restart arm (\d+)/\d+: valid recons \S+ "
+                      r"after (\d+) epochs"),
+    "kept": re.compile(r"discovery restarts: continuing from arm (\d+)"),
+    "rescue": re.compile(r"auto_rescue: epoch (\d+) "),
+    "resume": re.compile(r"checkpoint chain has (\d+) epochs done, "
+                         r"training (\d+) more")}
+
+
+def _events(messages):
+    return [(kind, tuple(int(v) for v in hit.groups()))
+            for m in messages for kind, pattern in _EVENTS.items()
+            for hit in [pattern.search(m)] if hit]
+
+
 def test_resumed_rescue_schedule_matches_jax(tmp_path, paig_log,
                                              monkeypatch):
     """RESCUE_RUN at --epochs=2 (the arm's epoch, then one loop epoch), then
     resumed with --epochs=4 --use_ckpt --resume_remaining_epochs, through
-    both packages' CLIs on the same files: each rescue rebuilds the same
-    LR schedule in both (its horizon, steps and anneal, and its LR at every
-    step, within float32 rounding), the resumed one over 4 less the loop
-    epoch it fires at, as the JAX trainer sizes it. The resumed run's
-    length is the one deliberate departure (``cli.epochs_to_train``): the
-    port counts the arm's epoch among the chain's, the JAX CLI does not."""
+    both packages' CLIs on the same files. Every LR schedule that either
+    builds (build_optimizer's, the arm's, each rescue's) is recorded with
+    the schedule position each optimizer step reads (the port's
+    ``_lr_at`` argument; the JAX optimizer's count, seen by a
+    ``jax.debug.callback`` in the compiled step): at every step of both
+    CLI runs the two packages use a schedule of the same horizon, steps an
+    epoch and anneal at the same position, and the same LR within float32
+    rounding. The JAX package reuses build_optimizer's schedule for its
+    arms where the port builds one of the same arguments. Each rescue
+    rebuilds the same schedule in both, the resumed one over 4 less the
+    loop epoch it fires at, as the JAX trainer sizes it; the arms, the
+    arm kept, the rescues and the resume fall at the same epochs. The
+    resumed run's length is the one deliberate departure
+    (``cli.epochs_to_train``): the port counts the arm's epoch among the
+    chain's, the JAX CLI does not, and trains one epoch more."""
     from paig_reproduction_tpu import cli as jax_cli
     from paig_reproduction_tpu.train import optimizers as jax_opt
     from paig_reproduction_tpu_torch.train import optimizers as opt
@@ -142,35 +168,91 @@ def test_resumed_rescue_schedule_matches_jax(tmp_path, paig_log,
     monkeypatch.setenv("PAIG_VIZ_EXAMPLES", "1")
     monkeypatch.setenv("PAIG_COMPILE_CACHE", "0")
     _tiny_data(tmp_path, n_eval=8)
-    schedules, messages = {}, {}
+    made, used, events = {}, {}, {}
     for name, main, lib, extra in (("port", cli.main, opt, ["--device=cpu"]),
                                    ("jax", jax_cli.main, jax_opt, [])):
-        calls = schedules[name] = []
+        built = made[name] = []     # (args, schedule, built by a rescue)
+        steps = used[name] = []     # per CLI run: (schedule, position)
 
-        def record(*args, make=lib.lr_schedule, calls=calls):
-            if any(f.function == "_do_auto_rescue"
-                   for f in inspect.stack(0)):
-                calls.append((args, make(*args)))
-            return make(*args)
+        def record(*args, make=lib.lr_schedule, built=built, steps=steps,
+                   name=name):
+            fn, i = make(*args), len(built)
+            built.append((args, fn, any(f.function == "_do_auto_rescue"
+                                        for f in inspect.stack(0))))
+            if name == "port":
+                return lambda step: steps[-1].append((i, step)) or fn(step)
+
+            def traced(count):
+                jax.debug.callback(
+                    lambda c: steps[-1].append((i, int(c))), count)
+                return fn(count)
+            return traced
 
         monkeypatch.setattr(lib, "lr_schedule", record)
         argv = RESCUE_RUN + extra + [f"--data_dir={tmp_path}",
                                      f"--save_dir={tmp_path / name}"]
-        main(argv + ["--epochs=2"])
-        main(argv + ["--epochs=4", "--use_ckpt", "--resume_remaining_epochs"])
-        messages[name] = [r.getMessage() for r in paig_log.records]
+        for more in (["--epochs=2"], ["--epochs=4", "--use_ckpt",
+                                      "--resume_remaining_epochs"]):
+            steps.append([])
+            main(argv + more)
+        events[name] = _events(r.getMessage() for r in paig_log.records)
         paig_log.clear()
-    port, ref = schedules["port"], schedules["jax"]
-    assert [a for a, _ in port] == [a for a, _ in ref] == [
+
+    def per_step(name):
+        """Each CLI run's optimizer steps: (schedule arguments, position,
+        LR). The JAX optimizer reads its schedule once per branch of the
+        update (the frozen background's too): consecutive repeats are one
+        step."""
+        runs = []
+        for run in used[name]:
+            run = [p for k, p in enumerate(run) if k == 0 or p != run[k - 1]]
+            runs.append([(made[name][i][0], pos, float(made[name][i][1](pos)))
+                         for i, pos in run])
+        return runs
+
+    port, ref = per_step("port"), per_step("jax")
+    assert [a for a, _, rescue in made["port"] if rescue] == [
+        a for a, _, rescue in made["jax"] if rescue] == [
         (1e-9, 1, 2, True), (1e-9, 3, 2, True)]
-    for (args, lr), (_, ref_lr) in zip(port, ref):
+    # Call by call (the port's repeats for its arms dropped): the same
+    # arguments in the same order, and the same LR at every position of
+    # each schedule's horizon and past it. Each CLI's seq-30 phase builds
+    # one over 0 epochs.
+    distinct = {}
+    for name in made:
+        distinct[name] = []
+        for args, fn, _ in made[name]:
+            if not distinct[name] or distinct[name][-1][0] != args:
+                distinct[name].append((args, fn))
+    assert [a for a, _ in distinct["port"]] == [
+        a for a, _ in distinct["jax"]] == [
+        (1e-9, 2, 2, True), (1e-9, 1, 2, True), (1e-9, 0, 1, True),
+        (1e-9, 4, 2, True), (1e-9, 3, 2, True), (1e-9, 0, 1, True)]
+    for (args, lr), (_, ref_lr) in zip(distinct["port"], distinct["jax"]):
         steps = range(args[1] * args[2] + 2)
         assert [lr(s) for s in steps] == pytest.approx(
             [float(ref_lr(s)) for s in steps], rel=1e-7)
-    resumed = "resume_remaining_epochs: checkpoint chain has %d epochs " \
-        "done, training %d more"
-    assert resumed % (2, 2) in messages["port"]
-    assert resumed % (1, 3) in messages["jax"]
+    # Step by step. The first run: the arm's 2 steps, then the loop
+    # epoch's 2 on the kept arm's optimizer, annealed from position 2
+    # (int(0.75 * 2) epochs of 2 steps). The resumed run: 2 steps on
+    # build_optimizer's schedule from the rescue's position 0, then the
+    # rescue's schedule over the epochs left; the port trains 2 epochs in
+    # all, the JAX CLI 3.
+    assert [len(r) for r in port] == [4, 4]
+    assert [len(r) for r in ref] == [4, 6]
+    for got, want in zip(port, ref):
+        assert [(a, p) for a, p, _ in got] == [
+            (a, p) for a, p, _ in want[:len(got)]]
+        assert [lr for _, _, lr in got] == pytest.approx(
+            [lr for _, _, lr in want[:len(got)]], rel=1e-7)
+    assert [(a[1], p, lr) for a, p, lr in port[0] + port[1]] == [
+        (2, 0, 1e-9), (2, 1, 1e-9), (2, 2, 2e-10), (2, 3, 2e-10),
+        (4, 0, 1e-9), (4, 1, 1e-9), (3, 0, 1e-9), (3, 1, 1e-9)]
+    # The events at the same epochs; the port's resume counts the arm's
+    # epoch among those done.
+    common = [("arm", (1, 1)), ("kept", (0,)), ("rescue", (1,))]
+    assert events["port"] == common + [("resume", (2, 2)), ("rescue", (1,))]
+    assert events["jax"] == common + [("resume", (1, 3)), ("rescue", (1,))]
 
 
 def _trainer(tmp_path, **fields):

@@ -8,6 +8,7 @@ and resumed by the runner; and the ``lstm`` phase's flags and quality
 check.
 """
 import logging
+import math
 import os
 import re
 
@@ -109,6 +110,9 @@ def test_logged_results_and_events():
     assert (one5["trigger"], one5["rescues"]) == (255, [250])
     assert one5["fits"] == [(4.2379, 5.8133)]
     assert got["mnist_one2"]["trigger"] == 1
+    assert got["mnist_one2"]["arms"] == [52.242, 1.49]
+    assert len(got["spring_bf16_one1"]["arms"]) == 8
+    assert len(got["bounce_one1"]["arms"]) == 8
     assert got["bounce_one1"]["rescues"] == [250, 500]
     assert got["lstm_proof"]["valid"][10]["pred"] == 20.32837677001953
     assert [n for n, g in got.items() if all(
@@ -166,6 +170,92 @@ def test_resume_decision(tmp_path):
         "eval_recons_loss=3"])
     (done / "model.ckpt").write_bytes(b"x")
     assert rr.resume_decision(str(done)) == "done"
+
+
+@pytest.mark.parametrize("name", sorted(rr.RUNS))
+def test_seed_replaces_only_the_logged_seed(name):
+    """--seed N changes the logged argv in its --seed=0 and nowhere else;
+    the CLI reads it; no --seed leaves the logged argv."""
+    argv = rr.RUNS[name]["argv"]
+    seeded = rr.run_argv(name, 3)
+    assert len(seeded) == len(argv)
+    assert [(a, b) for a, b in zip(argv, seeded) if a != b] == [
+        ("--seed=0", "--seed=3")]
+    assert rr.run_argv(name) == argv
+    assert cli.build_parser().parse_args(
+        seeded + ["--save_dir=/tmp/x"]).seed == 3
+
+
+def _finished(path, seed, arms, test, wall_s=10.0, launches=100):
+    """A hand-written finished run in ``path``: its arms, its final test
+    line (pred, recons) and its sidecar at ``seed``."""
+    _write(str(path / "log.txt"), [
+        f"discovery restart arm {i + 1}/{len(arms)}: valid recons {a} after "
+        f"150 epochs" for i, a in enumerate(arms)] + [
+        "valid - epoch=850 eval_extrap_loss=9 eval_pred_loss=9 "
+        "eval_recons_loss=9",
+        "test - epoch=850 eval_extrap_loss=9 eval_pred_loss=9 "
+        "eval_recons_loss=9",
+        "test - epoch=0 eval_extrap_loss=9 eval_pred_loss=%r "
+        "eval_recons_loss=%r" % test])
+    rr._write_sidecar(str(path), {"seed": seed, "segments": [dict(
+        kind="fresh", data_s=0.0, launches=launches, wall_s=wall_s,
+        finished=True)]})
+
+
+def test_resume_at_another_seed_is_refused(tmp_path):
+    """A run cut after its arms at seed 1 resumes only at seed 1; a run
+    whose sidecar names no seed ran at seed 0, the logged one."""
+    cut = tmp_path / "cut"
+    _write(str(cut / "log.txt"), [
+        "valid - epoch=50 eval_extrap_loss=1 eval_pred_loss=2 "
+        "eval_recons_loss=3"])
+    (cut / "model.ckpt").write_bytes(b"x")
+    rr._write_sidecar(str(cut), {"seed": 1, "segments": []})
+    assert rr.resume_decision(str(cut)) == "resume"
+    with pytest.raises(SystemExit, match="ran at seed 1; refusing to go on "
+                                         "at seed 2"):
+        rr.main(["--run", "spring_one5", "--save_dir", str(cut), "--seed",
+                 "2", "--device=cpu"])
+    done = tmp_path / "done"
+    _finished(done, 0, [9.0], (0.2, 0.1))
+    rr._write_sidecar(str(done), {"segments": []})
+    with pytest.raises(SystemExit, match="ran at seed 0; refusing"):
+        rr.run("spring_one5", str(done), device="cpu", seed=1)
+
+
+def test_compare_counts_the_runs_that_met_the_bars(tmp_path, capsys):
+    """--compare over three finished runs of one name: each run's line
+    names its seed and the log's seed-0 run, then one line counts the runs
+    under the bars with each one's seed, best arm and test pred / recons,
+    and ranks their 5 arms against the log's 8: U counts the pairs in
+    which the port's arm is the larger (8 + 1 + 7 + 0 + 5)."""
+    dirs = []
+    for seed, arms, test in ((0, [18.133, 9.843], (20.6742, 7.6852)),
+                             (1, [14.4, 3.482], (0.2312, 0.0705)),
+                             (2, [10.5], (2.9, 1.6))):
+        dirs.append(tmp_path / f"seed{seed}")
+        _finished(dirs[-1], seed, arms, test)
+    out = rr.main(["--run", "spring_one5", "--compare", *map(str, dirs)])
+    lines = capsys.readouterr().out.splitlines()
+    assert out["met"] == 1 and [r["seed"] for r in out["runs"]] == [0, 1, 2]
+    assert [r["port_pass"] for r in out["runs"]] == [False, True, False]
+    assert lines[0].startswith("reference_runs: spring_one5: port (seed 0) "
+                               "test pred=20.6742 recons=7.6852")
+    assert "| log (its seed-0 run) test pred=0.2791 " in lines[0]
+    # No ties: U's variance is 5 * 8 * (5 + 8 + 1) / 12 about its mean 20.
+    u, p = out["mann_whitney"]
+    assert u == 21.0
+    assert p == pytest.approx(math.erfc(0.5 / math.sqrt(40 * 14 / 12)
+                                        / math.sqrt(2)))
+    assert lines[-1] == (
+        "reference_runs: spring_one5: 1 of 3 runs met the bars; seed 0: best "
+        "arm 9.843, test pred / recons 20.6742 / 7.6852; seed 1: best arm "
+        "3.482, test pred / recons 0.2312 / 0.0705; seed 2: best arm 10.500, "
+        "test pred / recons 2.9000 / 1.6000 | arms: the port's 5 against the "
+        f"log's 8, Mann-Whitney U=21, p={p:.4f}")
+    assert rr.main(["--run", "spring_one5", "--compare", str(dirs[1])])[
+        "port_pass"]
 
 
 def test_runner_raises_without_a_card(monkeypatch, tmp_path):
