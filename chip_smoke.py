@@ -47,7 +47,15 @@ Phases, each printing its elapsed seconds:
                 (counted apart); then a resume with --use_ckpt must bring
                 the rescue and trigger state back. It prints the recipe's
                 train step and an eval batch's time with and without the
-                enhancers;
+                enhancers. Then the recipe's state changes, graphed against
+                eager (``recipe_swaps_vs_eager``): a graphed trainer, an
+                eager one and a second eager one as the noise floor, cuDNN
+                deterministic, each through two discovery arms of one epoch
+                (the first kept, so the optimizer restored is not the last
+                one made), 5 steps, a forced rescue, 5 steps, the aux
+                trigger, 5 steps; after each block the parameters' largest
+                relative difference graphed against eager beside eager
+                against eager (1e-5), and every decode counted;
 9. tasks      - the other four tasks of the task table (bouncing_balls,
                 3bp_color, spring_color_half, mnist_spring_color), each
                 through the CLI entry at B=100 and full width, its depth
@@ -147,7 +155,8 @@ Phases, each printing its elapsed seconds:
                 decodes it made;
 17. kernels   - one JSON line with every kernel's launches, error, times,
                 share of its bound and store-only floor, at the main
-                path's N=1000 and at N=2600, the recipe's launches, each
+                path's N=1000 and at N=2600, the recipe's launches (and
+                its state changes' launches and differences), each
                 task's launches, the LSTM, bf16, runtime, native-loader and
                 pipeline runs' launches (graph replays included), the
                 kernel at the tasks' shapes and the graph phase's
@@ -296,6 +305,14 @@ GRAPH_CONFIGS = {
     + TASK_RUNS["spring_color_half"]["flags"],
     "spring_recipe": TRAIN_ARGS + RECIPE_MODEL_FLAGS,
 }
+# The recipe phase's state changes, graphed against eager
+# (recipe_swaps_vs_eager): the spring recipe's model flags with the aux
+# trigger armed at a threshold that the first eval handed to it passes,
+# SWAP_ARMS discovery arms of one epoch, and SWAP_STEPS steps after each of
+# the kept arm's restore, a forced rescue and the trigger.
+SWAP_ARGS = TRAIN_ARGS + RECIPE_MODEL_FLAGS + ["--aux_on_recons=1e9"]
+SWAP_ARMS, SWAP_STEPS = 2, 5
+SWAP_BLOCKS = ("kept arm restored", "rescue", "trigger")
 # bf16 positions on the card against the same model's on the CPU: both
 # round their bf16 products once after f32 sums, in orders that may differ,
 # so a value can land one bf16 step away and move a position by thousandths
@@ -1431,17 +1448,17 @@ def fused_env(value):
             os.environ["PAIG_FUSED"] = old
 
 
-def make_trainer(argv, data_dir, batch_size=100):
-    """A Trainer on the card with the model and optimizer that the CLI
-    builds from `argv` (weights from its --seed) and the task's train-length
-    file under `data_dir`, without the CLI's run."""
+def make_trainer(argv, data_dir, batch_size=100, device="cuda"):
+    """A Trainer on `device` (the card) with the model and optimizer that
+    the CLI builds from `argv` (weights from its --seed) and the task's
+    train-length file under `data_dir`, without the CLI's run."""
     from paig_reproduction_tpu_torch import cli
     from paig_reproduction_tpu_torch.data.iterators import get_iterators
     from paig_reproduction_tpu_torch.train.trainer import Trainer
 
     args = cli.build_parser().parse_args(argv)
     entry = cli.TASK_TABLE[args.task]
-    trainer = Trainer(cli.build_model(args, entry[3]), device="cuda",
+    trainer = Trainer(cli.build_model(args, entry[3]), device=device,
                       seed=args.seed,
                       enhancers_eval_only=args.enhancers_eval_only)
     trainer.get_data(get_iterators(os.path.join(data_dir, entry[0]),
@@ -1475,6 +1492,20 @@ def rel_diff(a, b):
     return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
 
 
+def params_diff(trainer, ref):
+    """(the largest rel_diff of `trainer`'s parameters from `ref`'s,
+    whether all are bitwise equal)."""
+    import torch
+    pairs = [(p.detach(), q.detach()) for p, q in
+             zip(trainer.model.parameters(), ref.model.parameters())]
+    return (max(rel_diff(p, q) for p, q in pairs),
+            all(torch.equal(p, q) for p, q in pairs))
+
+
+def said(rel, bitwise):
+    return f"{rel:.3e}{' (bitwise equal)' if bitwise else ''}"
+
+
 def graph_vs_eager(argv, data_dir, steps=10, batch_size=100):
     """`steps` graphed steps (one chunk: the warm-up step, the capture,
     then replays) against as many eager steps on the same index batches
@@ -1498,11 +1529,6 @@ def graph_vs_eager(argv, data_dir, steps=10, batch_size=100):
     idxs = np.stack([rs.choice(n, batch_size, replace=False)
                      for _ in range(steps)])
 
-    def compare(t):
-        pairs = list(zip(t.model.parameters(), eager.model.parameters()))
-        return (max(rel_diff(p, q) for p, q in pairs),
-                all(torch.equal(p, q) for p, q in pairs))
-
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     try:
@@ -1518,8 +1544,9 @@ def graph_vs_eager(argv, data_dir, steps=10, batch_size=100):
             done, _ = graphed.train_chunk(batch_size, steps)
             release(graphed)
         torch.cuda.synchronize()
-        out = dict(zip(("param_rel", "bitwise"), compare(graphed)))
-        out.update(zip(("eager_rel", "eager_bitwise"), compare(again)))
+        out = dict(zip(("param_rel", "bitwise"), params_diff(graphed, eager)))
+        out.update(zip(("eager_rel", "eager_bitwise"),
+                       params_diff(again, eager)))
         evals = []
         for t, env in ((eager, "0"), (graphed, None)):
             t.valid_iterator.indices = np.arange(
@@ -1537,12 +1564,10 @@ def graph_vs_eager(argv, data_dir, steps=10, batch_size=100):
                 eager.train_step(idx)
                 again.train_step(idx)
         torch.cuda.synchronize()
-        out.update(zip(("free_rel", "free_bitwise"), compare(again)))
+        out.update(zip(("free_rel", "free_bitwise"),
+                       params_diff(again, eager)))
     finally:
         torch.backends.cudnn.deterministic = deterministic
-
-    def said(rel, bitwise):
-        return f"{rel:.3e}{' (bitwise equal)' if bitwise else ''}"
 
     print(f"{done} graphed steps against {steps} eager ones from the same "
           f"weights: parameters' largest relative difference "
@@ -1556,6 +1581,173 @@ def graph_vs_eager(argv, data_dir, steps=10, batch_size=100):
             and out["eval_rel"] <= GRAPH_PARAM_RTOL):
         raise AssertionError("the graphed step or eval disagrees with the "
                              "eager one")
+    return out
+
+
+def recipe_swaps_vs_eager(argv, data_dir, steps=SWAP_STEPS, batch_size=100,
+                          device="cuda"):
+    """The recipe's state changes, graphed against eager: a trainer on the
+    fused path (captured on the card), an eager one and a second eager one
+    as the noise floor, cuDNN deterministic, from the same weights and on
+    the same shuffles, each through the same blocks:
+
+    1. SWAP_ARMS discovery arms of one epoch (``run_discovery_restarts``),
+       every arm after the first scored as infinite so that the first is
+       kept: the optimizer restored is not the last one made; then `steps`
+       steps;
+    2. a forced rescue (``_do_auto_rescue``: the surgery, and a new
+       optimizer with the background group at scale 0); `steps` steps;
+    3. the aux trigger (``_after_valid_eval`` on a valid eval, the trigger
+       armed by `argv`'s --aux_on_recons): the aux scale turns to 1 at the
+       step it fires; `steps` steps.
+
+    After each block the parameters' largest relative difference graphed
+    against eager, and eager against eager, are printed and held to
+    GRAPH_PARAM_RTOL. The decoder's launches of the fused trainer and of
+    the first eager one, replays included, are held to ``recipe_decodes``
+    of the blocks' train steps and eval batches (the arms' scores and the
+    trigger's eval), the refinement's apart. Returns the blocks' numbers,
+    the counts and the arms' scores."""
+    import numpy as np
+    import torch
+    from paig_reproduction_tpu_torch import cli
+    from paig_reproduction_tpu_torch.ops.cuda import st_decoder as sd
+    from paig_reproduction_tpu_torch.train.trainer import logger
+
+    handlers = list(logger.handlers)
+    trainers = [make_trainer(argv, data_dir, batch_size, device)
+                for _ in range(3)]
+    graphed, eager, again = trainers
+    # The fused path: PAIG_FUSED=1 captures on the card and calls the step
+    # body directly on the CPU.
+    envs = ("1", "0", "0")
+    # Each trainer's valid recons: its arms' scores, then its trigger's.
+    scores = [[] for _ in trainers]
+    threshold = cli.build_parser().parse_args(argv).aux_on_recons
+    for t in trainers:
+        t.model.load_state_dict(graphed.model.state_dict())
+        t.save_dir = tempfile.mkdtemp(prefix="paig_swaps_")
+        t.set_aux_trigger(threshold)
+        for it in (t.train_iterator, t.valid_iterator):
+            it._rng = np.random.RandomState(0)
+            it.indices = np.arange(it.num_examples)
+            it.reset_epoch()
+    n = graphed.train_iterator.num_examples
+    rs = np.random.RandomState(2)
+    idxs = [np.stack([rs.choice(n, batch_size, replace=False)
+                      for _ in range(steps)]) for _ in SWAP_BLOCKS]
+
+    def train(t, env, block):
+        if env == "0":
+            for idx in idxs[block]:
+                t.train_step(idx)
+        else:
+            feed_indices(t, idxs[block])
+            done, _ = t.train_chunk(batch_size, steps)
+            release(t)
+            if done != steps:
+                raise AssertionError(f"a chunk of {steps} steps ran {done}")
+
+    def arms(t, env):
+        sc, real = scores[trainers.index(t)], t._quick_valid_recons
+
+        def scored(bs):
+            sc.append(real(bs))
+            return sc[-1] if len(sc) == 1 else math.inf
+
+        t._quick_valid_recons = scored
+        try:
+            t.run_discovery_restarts(batch_size, SWAP_ARMS, 1)
+        finally:
+            del t._quick_valid_recons
+        if t.optimizer is t._made[-1]:
+            raise AssertionError("the kept arm's optimizer is the last one "
+                                 "made")
+        train(t, env, 0)
+
+    def rescue(t, env):
+        t._do_auto_rescue(1, scores[trainers.index(t)][0])
+        train(t, env, 1)
+
+    def trigger(t, env):
+        scores[trainers.index(t)].append(t._quick_valid_recons(batch_size))
+        t._after_valid_eval(2, scores[trainers.index(t)][-1])
+        if not (t._aux_triggered and t.aux_warmup_steps == t.step):
+            raise AssertionError("the aux trigger did not fire")
+        train(t, env, 2)
+
+    out = dict(blocks={}, launches=[0, 0], refine_launches=[0, 0])
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for t in trainers:
+            # Every optimizer the trainer makes, in order.
+            made = t._made = []
+            make = t._make_optimizer
+            t._make_optimizer = lambda *a, make=make, made=made, **k: \
+                made.append(make(*a, **k)) or made[-1]
+        with refinement_launches() as refine_count:
+            for block, (name, fn) in enumerate(zip(
+                    SWAP_BLOCKS, (arms, rescue, trigger))):
+                for i, (t, env) in enumerate(zip(trainers, envs)):
+                    before, refine_before = sd.LAUNCHES, refine_count()
+                    with fused_env(env):
+                        fn(t, env)
+                    if device != "cpu":
+                        torch.cuda.synchronize()
+                    if i < 2:
+                        out["launches"][i] += sd.LAUNCHES - before
+                        out["refine_launches"][i] += (refine_count()
+                                                      - refine_before)
+                rel = dict(zip(("param_rel", "bitwise"),
+                               params_diff(graphed, eager)))
+                rel.update(zip(("eager_rel", "eager_bitwise"),
+                               params_diff(again, eager)))
+                out["blocks"][name] = rel
+                print(f"recipe swaps, after the {name} block and {steps} "
+                      f"steps: parameters' largest relative difference, "
+                      f"graphed against eager "
+                      f"{said(rel['param_rel'], rel['bitwise'])}; eager "
+                      f"against eager "
+                      f"{said(rel['eager_rel'], rel['eager_bitwise'])} "
+                      f"(tolerance {GRAPH_PARAM_RTOL})", flush=True)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        for h in set(logger.handlers) - set(handlers):
+            logger.removeHandler(h)
+            h.close()
+    valid_batches = eval_batches(graphed.valid_iterator.num_examples,
+                                 batch_size)
+    spe = graphed.train_iterator.num_examples // batch_size
+    out["expected"], out["expected_refine"] = recipe_decodes(
+        SWAP_ARMS * spe + len(SWAP_BLOCKS) * steps,
+        (SWAP_ARMS + 1) * valid_batches, 0, REFINE_ITERS)
+    out["scores"] = scores
+    out["score_rel"] = max(abs(a - b) / abs(b)
+                           for a, b in zip(scores[0], scores[1]))
+    out["graph_stats"] = graphed.graph_stats()
+    print(f"recipe swaps: st_decode launches, fused / eager "
+          f"{out['launches'][0]} / {out['launches'][1]} (expected "
+          f"{out['expected']}: {SWAP_ARMS} arms of {spe} steps, "
+          f"{len(SWAP_BLOCKS)} x {steps} steps, {SWAP_ARMS + 1} valid evals "
+          f"of {valid_batches} batches), of them in the refinement "
+          f"{out['refine_launches'][0]} / {out['refine_launches'][1]} "
+          f"(expected {out['expected_refine']}); arms' and trigger's valid "
+          f"recons, fused {scores[0]}, eager {scores[1]}, second eager "
+          f"{scores[2]} (fused against eager {out['score_rel']:.3e}); "
+          f"graphs "
+          f"{out['graph_stats']}", flush=True)
+    if any(r["param_rel"] > GRAPH_PARAM_RTOL
+           for r in out["blocks"].values()):
+        raise AssertionError("the graphed step disagrees with the eager one "
+                             "across the recipe's state changes")
+    if (out["launches"] != [out["expected"]] * 2
+            or out["refine_launches"] != [out["expected_refine"]] * 2):
+        raise AssertionError("the recipe's state changes did not decode "
+                             "through the kernel on every decode")
+    if out["score_rel"] > GRAPH_PARAM_RTOL:
+        raise AssertionError("the fused evals' scores differ from the "
+                             "eager ones")
     return out
 
 
@@ -2493,6 +2685,11 @@ def kernels_line(launches, max_err, timings, jvp, runs):
         "jvp": jvp,
         "recipe_launches": runs["recipe"]["launches"],
         "recipe_refine_launches": runs["recipe"]["refine_launches"],
+        "recipe_swaps": {
+            "launches": runs["recipe"]["swaps"]["launches"],
+            "refine_launches": runs["recipe"]["swaps"]["refine_launches"],
+            **{k: v["param_rel"] for k, v in
+               runs["recipe"]["swaps"]["blocks"].items()}},
         "task_launches": {t: r["launches"]
                           for t, r in runs["tasks"].items()},
         "lstm_launches": runs["lstm"]["launches"],
@@ -2579,6 +2776,11 @@ def main(argv=None):
         print(f"recipe on {smi}: train step {rec['step_ms']:.2f} ms, eval "
               f"batch {rec['eval_ms']:.2f} ms with the enhancers, "
               f"{rec['eval_plain_ms']:.2f} ms without")
+        rec["swaps"] = recipe_swaps_vs_eager(SWAP_ARGS, DATA_DIR)
+        print(f"recipe swaps on {smi}: " + "; ".join(
+            f"{k} graphed against eager {v['param_rel']:.3e}, eager against "
+            f"eager {v['eager_rel']:.3e}" for k, v in
+            rec["swaps"]["blocks"].items()))
 
     with phase("tasks"):
         finish_generation(generation)

@@ -31,8 +31,11 @@ finished run's ``log.txt`` against the log; given several save_dirs of
 one run, it then prints how many met the bars. ``--seed N`` replaces the
 logged ``--seed=0`` and nothing else; the run's ``reference_run.json``
 records it, and a resume at another seed is refused. The logs are the JAX
-package's seed-0 runs. It runs on the card; without a CUDA device it
-raises unless ``--device=cpu`` is given.
+package's seed-0 runs, each dated on the compare line by its earliest
+timestamp: the code they ran is the JAX package's of that day, not
+necessarily the package as it stands (``spring_one5``'s log, of
+2026-08-18, predates the rescue's stall guard). It runs on the card;
+without a CUDA device it raises unless ``--device=cpu`` is given.
 """
 from __future__ import annotations
 
@@ -127,6 +130,7 @@ _TRIGGER = re.compile(r"aux_on_recons trigger: valid recons (\S+) < \S+ at "
 _RESCUE = re.compile(r"auto_rescue: epoch (\d+) valid recons (\S+) ")
 _FIT = re.compile(r"fit_physics: k=(\S+) equil=(\S+) ")
 _RESUME = re.compile(r"reference_runs: resuming at loop epoch (\d+)")
+_STAMP = re.compile(r"^(\d{4}-\d\d-\d\d \d\d:\d\d:\d\d)")
 RESUME_LINE = "reference_runs: resuming at loop epoch %d"
 SIDECAR = "reference_run.json"
 
@@ -146,17 +150,23 @@ def parse_log(path) -> dict:
     rescues' epochs, the ``fit_physics:`` (k, equil) fits, the flag
     ``header`` (the ``--`` lines after the first line naming the entry
     script) and ``segments`` (1, and 1 more for each resume the runner
-    marked: its loop epochs count on from the checkpoint's). A timestamped
-    line seen before is skipped: the thinned JAX logs repeat their first
-    lines after the flag header."""
+    marked: its loop epochs count on from the checkpoint's), and
+    ``first_logged``: the earliest timestamp of its lines
+    (``YYYY-MM-DD HH:MM:SS``; None without one), which dates the run. A
+    timestamped line seen before is skipped: the thinned JAX logs repeat
+    their first lines after the flag header."""
     out = dict(test=None, test_epoch=None, valid={}, arms=[], trigger=None,
-               rescues=[], fits=[], header=[], segments=1)
+               rescues=[], fits=[], header=[], segments=1, first_logged=None)
     offset = 0
     in_header = False
     seen = set()
     with open(path, errors="replace") as f:
         for line in f:
             line = line.rstrip("\n")
+            stamp = _STAMP.match(line)
+            if stamp and (out["first_logged"] is None
+                          or stamp.group(1) < out["first_logged"]):
+                out["first_logged"] = stamp.group(1)
             if " - paig - " in line:
                 if line in seen:
                     continue
@@ -442,7 +452,7 @@ def compare(name, save_dir, data_dir=None) -> dict:
     segs = side["segments"]
     out = dict(
         run=name, seed=side.get("seed", 0), port_test=port["test"],
-        log_test=ref["test"],
+        log_test=ref["test"], log_first_logged=ref["first_logged"],
         bars=bars, port_pass=passes(port["test"]),
         log_pass=passes(ref["test"]), arms=port["arms"],
         log_arms=ref["arms"], trigger=port["trigger"],
@@ -469,7 +479,8 @@ def compare(name, save_dir, data_dir=None) -> dict:
                 " ".join(f"{k}={t[k]:.4f}" for k in KEYS))
 
     line = (f"reference_runs: {name}: port (seed {out['seed']}) test "
-            f"{fmt(port['test'])} | log (its seed-0 run) test "
+            f"{fmt(port['test'])} | log (the JAX package's seed-0 run, "
+            f"first logged {ref['first_logged']}) test "
             f"{fmt(ref['test'])} | bars "
             + " ".join(f"{k}<{v}" for k, v in bars.items())
             + f": port {'pass' if out['port_pass'] else 'miss'}, log "

@@ -197,6 +197,90 @@ def test_bf16_recipe_launches_count_a_cli_run(tmp_path, monkeypatch):
     assert trainer.train_net.refine_recons_pos == 0
 
 
+def test_recipe_swaps_hold_and_count_on_the_cpu(tmp_path, monkeypatch,
+                                                capsys):
+    """recipe_swaps_vs_eager on tiny files (8 train, 4 valid sequences,
+    B=4: two steps an epoch, one eval batch) on the CPU, where the fused
+    trainer calls the step body directly: each trainer goes through the
+    arms (the first kept), the steps, the rescue, the steps, the trigger
+    and the steps in that order; the parameters are bitwise equal after
+    each block; each block's line and the launches line are printed; and
+    the wrapper is called as recipe_decodes says for 2 arms of 2 steps, 3
+    blocks of 2 steps and 3 valid evals of one batch."""
+    import numpy as np
+    import torch
+
+    from paig_reproduction_tpu_torch.train.trainer import Trainer
+
+    data = os.path.join(os.path.dirname(chip_smoke.__file__), "data",
+                        "datasets", "spring_color")
+    name = "color_spring_vx8_vy8_sl12_r2_k4_e6.npz"
+    (tmp_path / "spring_color").mkdir()
+    with np.load(os.path.join(data, name)) as d:
+        np.savez(tmp_path / "spring_color" / name, train_x=d["train_x"][:8],
+                 valid_x=d["valid_x"][:4], test_x=d["test_x"][:4])
+    fused = tkernel.st_decode_fused
+
+    def counted(*a):
+        tkernel.LAUNCHES += 1
+        return fused(*a)
+
+    monkeypatch.setattr(tkernel, "st_decode_fused", counted)
+    monkeypatch.setattr(tkernel, "LAUNCHES", 0)
+    events = {}
+
+    def spy(method, label):
+        real = getattr(Trainer, method)
+
+        def wrapped(self, *a, **k):
+            events.setdefault(id(self), []).append(label)
+            return real(self, *a, **k)
+
+        monkeypatch.setattr(Trainer, method, wrapped)
+
+    for method, label in (("run_discovery_restarts", "arms"),
+                          ("_do_auto_rescue", "rescue"),
+                          ("_after_valid_eval", "trigger"),
+                          ("train_chunk", "chunk"), ("train_step", "step")):
+        spy(method, label)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        out = chip_smoke.recipe_swaps_vs_eager(
+            chip_smoke.SWAP_ARGS, str(tmp_path), steps=2, batch_size=4,
+            device="cpu")
+    finally:
+        torch.set_num_threads(threads)
+    fused_events, eager_events, again_events = events.values()
+    # The fused trainer: one chunk an arm, then one of 2 steps a block.
+    assert fused_events == ["arms", "chunk", "chunk", "chunk", "rescue",
+                            "chunk", "trigger", "chunk"]
+    assert eager_events == again_events == (
+        ["arms"] + ["step"] * 4 + ["step"] * 2 + ["rescue"] + ["step"] * 2
+        + ["trigger"] + ["step"] * 2)
+    assert list(out["blocks"]) == list(chip_smoke.SWAP_BLOCKS)
+    for block in out["blocks"].values():
+        assert block["bitwise"] and block["eager_bitwise"]
+        assert block["param_rel"] == block["eager_rel"] == 0.0
+    assert (out["expected"], out["expected_refine"]) == \
+        chip_smoke.recipe_decodes(2 * 2 + 3 * 2, 3, 0,
+                                  chip_smoke.REFINE_ITERS) == (38, 12)
+    assert out["launches"] == [38, 38] and out["refine_launches"] == [12, 12]
+    assert [len(s) for s in out["scores"]] == [3, 3, 3]
+    assert out["score_rel"] == 0.0
+    lines = [line for line in capsys.readouterr().out.splitlines()
+             if line.startswith("recipe swaps")]
+    assert len(lines) == 4
+    for line, block in zip(lines, chip_smoke.SWAP_BLOCKS):
+        assert line.startswith(f"recipe swaps, after the {block} block and "
+                               f"2 steps: ")
+        assert ("graphed against eager 0.000e+00 (bitwise equal); eager "
+                "against eager 0.000e+00 (bitwise equal) (tolerance "
+                "1e-05)") in line
+    assert lines[3].startswith("recipe swaps: st_decode launches, fused / "
+                               "eager 38 / 38 (expected 38: ")
+
+
 def test_refinement_launches_count_replays(monkeypatch):
     """chip_smoke.refinement_launches and the captured step's own count
     on the card's terms: a capture runs the step's Python once and records
@@ -523,7 +607,9 @@ def test_kernels_line_has_every_phase(capsys):
                   share_of_bound=0.5, store_floor_ms=0.7)
     timings = {shape: timing for shape in chip_smoke.TIMED_SHAPES}
     runs = dict(
-        recipe=dict(launches=442, refine_launches=128),
+        recipe=dict(launches=442, refine_launches=128, swaps=dict(
+            launches=[3380, 3380], refine_launches=[400, 400], blocks={
+                b: dict(param_rel=0.0) for b in chip_smoke.SWAP_BLOCKS})),
         tasks={"3bp_color": dict(launches=72)}, lstm=dict(
             launches=11430, test={"pred": 19.0}, log_test={"pred": 19.16},
             limits={"pred": 21.08}, valid10_pred=20.3, last_pred=19.2,
@@ -548,6 +634,9 @@ def test_kernels_line_has_every_phase(capsys):
     assert kernel["task_launches"] == {"3bp_color": 72}
     assert kernel["lstm_launches"] == 11430
     assert kernel["bf16_recipe_launches"] == 100
+    assert kernel["recipe_swaps"] == {
+        "launches": [3380, 3380], "refine_launches": [400, 400],
+        "kept arm restored": 0.0, "rescue": 0.0, "trigger": 0.0}
     assert kernel["lstm_proof"]["test"] == {"pred": 19.0}
     assert kernel["lstm_proof"]["steps"] == 3750
     # Only numbers measured in the run: the log's and the limits derived

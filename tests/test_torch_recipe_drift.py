@@ -1,8 +1,8 @@
 """The spring recipe's train step, 10 steps at B=8, against the JAX
-package's from the same initial weights (the CLI's ``--seed=0``: the JAX
-package's) on the same batches: how far the two trajectories part, beside
-how far the JAX step parts from itself when its initial weights move by one
-part in 10^7.
+package's from the same weights (the CLI's ``--seed=0``: the JAX
+package's initial ones; or a JAX checkpoint's) on the same batches: how
+far the two trajectories part, beside how far the JAX step parts from
+itself when its weights move by one part in 10^7.
 
 This is the mechanism behind a full-length run that does not repeat its
 log (PERF.md, "Task quality on the card"): RMSprop's first updates are
@@ -20,30 +20,33 @@ Ten steps are enough to show it: the comparison holds from step 3 on,
 and at step 10 (parameters 5.6e-2 against 1.1e-1 of the largest, losses
 2.3e-3 against 4.2e-3) its margins are those of step 50 (9.7e-2 against
 2.0e-1, the same losses), where the gaps have stopped growing (CPU).
-"""
-import dataclasses
-import os
 
+The same holds from an undiscovered state, the JAX package's
+runs/spring_s2_100 (seed 2 after 100 plain epochs, valid recons 11.23) as
+the port's kept arms are: parameters 4.2e-2 against 4.4e-2 of the largest,
+losses at most 2.1e-2 against 2.6e-2. A fresh RMSprop on trained weights
+takes its first steps at about ten times the rate's size, so the losses
+there part by more than 1e-2 in JAX from itself, and that case holds the
+port only to JAX's own spread.
+"""
 import jax
 import numpy as np
-import optax
 import pytest
 import torch
 
-from paig_reproduction_tpu.models import PhysicsNet as JaxPhysicsNet
-from paig_reproduction_tpu.models.physics_net import (
-    compute_losses as jax_losses,
-)
-from paig_reproduction_tpu.train import optimizers as jax_opt
-from paig_reproduction_tpu_torch import cli
 from paig_reproduction_tpu_torch.convert import flax_to_state_dict
-from paig_reproduction_tpu_torch.data import iterators
-from paig_reproduction_tpu_torch.tools.reference_runs import RUNS
-from paig_reproduction_tpu_torch.train.trainer import Trainer
+from spring_pair import (
+    SL12,
+    SPRING_S2_100,
+    jax_models,
+    jax_step_fn,
+    load_port,
+    nudged,
+    port_trainer,
+    recipe_args,
+    start_params,
+)
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SL12 = os.path.join(REPO, "data", "datasets", "spring_color",
-                    "color_spring_vx8_vy8_sl12_r2_k4_e6.npz")
 STEPS, BATCH, POOL = 10, 8, 64
 LOSS_RTOL = 1e-2
 PERTURBATION = 1e-7
@@ -63,55 +66,30 @@ def _largest_gap(a, b):
                for k in a)
 
 
-def test_recipe_steps_part_no_further_than_jax_from_itself(tmp_path,
-                                                           one_thread):
-    # spring_one5's flags as the arms train them: its model, the
-    # enhancers kept for the evals, the alignment losses off (before the
-    # --aux_on_recons trigger), its optimizer and schedule.
-    argv = [a for a in RUNS["spring_one5"]["argv"]
-            if a.split("=")[0] in ("--task", "--base_lr",
-                                   "--autoencoder_loss", "--color", "--seed",
-                                   "--epochs", "--pos_consistency",
-                                   "--vel_anchor", "--learn_frame_offset",
-                                   "--init_state_fit", "--refine_recons_pos",
-                                   "--enhancers_eval_only")]
-    args = cli.build_parser().parse_args(argv + ["--device=cpu"])
-    model = cli.build_model(args, 12)
+@pytest.mark.parametrize("start,loss_cap", [
+    ("jax_init", LOSS_RTOL), (SPRING_S2_100, None)],
+    ids=["jax_init", "spring_s2_100"])
+def test_recipe_steps_part_no_further_than_jax_from_itself(
+        tmp_path, one_thread, start, loss_cap):
+    # spring_one5's flags as its loop trains them before the trigger: its
+    # model, the enhancers kept for the evals, the alignment losses off,
+    # its optimizer and schedule. From the JAX init (the arms' start) and
+    # from runs/spring_s2_100 (an undiscovered state, as the kept arms).
+    args = recipe_args()
     with np.load(SL12) as d:
         path = tmp_path / "spring.npz"
         np.savez(path, train_x=d["train_x"][:POOL], valid_x=d["valid_x"][:8],
                  test_x=d["test_x"][:8])
-    trainer = Trainer(model, device="cpu", enhancers_eval_only=True)
-    trainer.get_data(iterators.get_iterators(str(path), conv=True))
-    trainer.build_optimizer(args.base_lr, "rmsprop", True,
-                            epochs=args.epochs, steps_per_epoch=25)
-    trainer.aux_warmup_steps = 1 << 30
+    trainer = port_trainer(args, path, 25)
     x = trainer.train_iterator.raw_uint8.astype(np.float32) / 255
 
-    fields = {f.name for f in dataclasses.fields(JaxPhysicsNet)}
-    jax_model = JaxPhysicsNet(**{
-        k: v for k, v in model.config.items() if k in fields
-        and k not in ("init_state_fit", "refine_recons_pos")})
-    params = jax.jit(jax_model.init)(jax.random.PRNGKey(0), x[:1])["params"]
-    start = flax_to_state_dict(jax.device_get(params))
-    assert all(torch.equal(v.reshape(-1), start[k].reshape(-1))
-               for k, v in model.state_dict().items() if k in start)
-    tx = jax_opt.build_optimizer(
-        "rmsprop", jax_opt.lr_schedule(args.base_lr, args.epochs, 25, True),
-        params)
+    jax_model, _ = jax_models(trainer.model)
+    params = start_params(start, jax_model, x)
+    load_port(trainer, start, params)
+    tx, jax_step = jax_step_fn(jax_model, args, 25, params)
 
-    @jax.jit
-    def jax_step(params, opt_state, batch):
-        def loss_fn(p):
-            out, aux = jax_model.apply({"params": p}, batch)
-            return jax_losses(jax_model, batch, out, aux["recons_out"],
-                              aux_scale=0.0)
-        (loss, _), grads = jax.value_and_grad(loss_fn, has_aux=True)(params)
-        updates, opt_state = tx.update(grads, opt_state, params)
-        return optax.apply_updates(params, updates), opt_state, loss
-
-    nudged = jax.tree.map(lambda v: v * (1 + PERTURBATION), params)
-    runs = [[params, tx.init(params)], [nudged, tx.init(nudged)]]
+    other = nudged(params, PERTURBATION)
+    runs = [[params, tx.init(params)], [other, tx.init(other)]]
     rs = np.random.RandomState(0)
     loss_gaps = []                      # (port's, the nudged JAX run's)
     for _ in range(STEPS):
@@ -137,4 +115,6 @@ def test_recipe_steps_part_no_further_than_jax_from_itself(tmp_path,
           f"{PERTURBATION:g} {jax_gap / largest:.3e} of the largest; losses "
           f"at most {port_loss_gap:.3e} and {jax_loss_gap:.3e} relative")
     assert 0 < port_gap <= jax_gap
-    assert port_loss_gap <= min(jax_loss_gap, LOSS_RTOL)
+    assert port_loss_gap <= jax_loss_gap
+    if loss_cap is not None:
+        assert port_loss_gap <= loss_cap

@@ -25,6 +25,7 @@ from paig_reproduction_tpu_torch import cli
 from paig_reproduction_tpu_torch.convert import flax_to_state_dict
 from paig_reproduction_tpu_torch.data import iterators
 from paig_reproduction_tpu_torch.models import PhysicsNet
+from paig_reproduction_tpu_torch.tools import reference_runs
 from paig_reproduction_tpu_torch.train import recipes
 from paig_reproduction_tpu_torch.train.trainer import Trainer
 
@@ -299,18 +300,38 @@ def test_discovery_arms(tmp_path, paig_log, monkeypatch):
     assert "continuing from arm 1 (valid recons 7.000" in paig_log.text
 
 
+def _log_rescue_case():
+    """benchmarks/spring_one5_test_log.txt's valid curve up to its decisive
+    rescue at loop epoch 250 (--auto_rescue=250), parsed: (the evals
+    before it, 250, its recons there, 250). The log's run began before the
+    JAX package had its stall guard."""
+    valid = reference_runs.parse_log(
+        reference_runs.log_path("spring_one5"))["valid"]
+    history = [(e, v["recons"]) for e, v in sorted(valid.items()) if e < 250]
+    return history, 250, valid[250]["recons"], 250
+
+
+LOG_RESCUE = _log_rescue_case()
+
+
 @pytest.mark.parametrize("history,ep,recons,auto_rescue", [
     ([(0, 30.0), (1, 20.0)], 2, 19.5, 2),
     ([(0, 30.0), (1, 20.0)], 2, 15.0, 2),
     ([(0, 30.0)], 1, 29.9, 4),
     ([], 3, 10.0, 2),
-    ([(0, float("nan")), (2, 9.0)], 4, 8.0, 4)])
+    ([(0, float("nan")), (2, 9.0)], 4, 8.0, 4),
+    pytest.param(*LOG_RESCUE, id="spring_one5_log_at_250")])
 def test_stall_guard_matches_jax(history, ep, recons, auto_rescue):
     state = dict(auto_rescue=auto_rescue, _recons_history=list(history))
+    stalled = jax_recipes.RecipeMixin._discovery_stalled(
+        types.SimpleNamespace(**state), ep, recons)
     assert recipes.RecipeMixin._discovery_stalled(
-        types.SimpleNamespace(**state), ep, recons) == \
-        jax_recipes.RecipeMixin._discovery_stalled(
-            types.SimpleNamespace(**state), ep, recons)
+        types.SimpleNamespace(**state), ep, recons) == stalled
+    if (history, ep, recons, auto_rescue) == LOG_RESCUE:
+        # 5.330 at epoch 125 to 5.006 at 250 is 6.1%, over the guard's 5%:
+        # both packages defer the rescue that the log's run made there.
+        assert dict(history)[ep - auto_rescue // 2] == 5.33042049407959
+        assert not stalled
 
 
 @pytest.fixture(scope="module")

@@ -121,6 +121,22 @@ def test_logged_results_and_events():
 
 
 @pytest.mark.parametrize("name", sorted(rr.RUNS))
+def test_log_is_dated_by_its_earliest_line(name):
+    """A log's ``first_logged`` is the earliest timestamp of its lines
+    (the thinned logs put their flag header, written later, first), the
+    date its compare line names. spring_one5's log began on 2026-08-18 at
+    21:17:13, before the JAX package's rescue stall guard was committed
+    that evening: the log is of the package of that day."""
+    with open(rr.log_path(name), errors="replace") as f:
+        stamps = re.findall(r"^(\d{4}-\d\d-\d\d \d\d:\d\d:\d\d)",
+                            f.read(), re.M)
+    assert rr.parse_log(rr.log_path(name))["first_logged"] == min(stamps)
+    if name == "spring_one5":
+        assert min(stamps) == "2026-08-18 21:17:13"
+        assert min(stamps) < stamps[0]
+
+
+@pytest.mark.parametrize("name", sorted(rr.RUNS))
 def test_argv_means_the_same_to_both_clis(name):
     """Every flag that both CLIs have parses to the same value."""
     argv = rr.RUNS[name]["argv"] + ["--save_dir=/tmp/x"]
@@ -226,10 +242,10 @@ def test_resume_at_another_seed_is_refused(tmp_path):
 
 def test_compare_counts_the_runs_that_met_the_bars(tmp_path, capsys):
     """--compare over three finished runs of one name: each run's line
-    names its seed and the log's seed-0 run, then one line counts the runs
-    under the bars with each one's seed, best arm and test pred / recons,
-    and ranks their 5 arms against the log's 8: U counts the pairs in
-    which the port's arm is the larger (8 + 1 + 7 + 0 + 5)."""
+    names its seed and the log's seed-0 run with its date, then one line
+    counts the runs under the bars with each one's seed, best arm and test
+    pred / recons, and ranks their 5 arms against the log's 8: U counts
+    the pairs in which the port's arm is the larger (8 + 1 + 7 + 0 + 5)."""
     dirs = []
     for seed, arms, test in ((0, [18.133, 9.843], (20.6742, 7.6852)),
                              (1, [14.4, 3.482], (0.2312, 0.0705)),
@@ -242,7 +258,8 @@ def test_compare_counts_the_runs_that_met_the_bars(tmp_path, capsys):
     assert [r["port_pass"] for r in out["runs"]] == [False, True, False]
     assert lines[0].startswith("reference_runs: spring_one5: port (seed 0) "
                                "test pred=20.6742 recons=7.6852")
-    assert "| log (its seed-0 run) test pred=0.2791 " in lines[0]
+    assert ("| log (the JAX package's seed-0 run, first logged 2026-08-18 "
+            "21:17:13) test pred=0.2791 ") in lines[0]
     # No ties: U's variance is 5 * 8 * (5 + 8 + 1) / 12 about its mean 20.
     u, p = out["mann_whitney"]
     assert u == 21.0
