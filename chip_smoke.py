@@ -153,14 +153,25 @@ Phases, each printing its elapsed seconds:
                 stage prints its wall
                 seconds and its decoder launches, which must equal the
                 decodes it made;
-17. kernels   - one JSON line with every kernel's launches, error, times,
+17. chain     - 3bp_color's multi-stage chain through the reference
+                runner (tools/reference_runs.py's 3bp_chain) at cut depth
+                on the tracked files, B=100: the slot curriculum's three
+                stages (CHAIN_CURRICULUM epochs, the first warm-started
+                from the converted spring trunk), the all-slot surgery,
+                the pinned resume (CHAIN_PINNED epochs), ``fit_physics
+                --write`` and both test phases with their logs' flags. Each
+                stage prints its wall seconds and its decoder launches,
+                replays included, which must equal the decodes it made
+                (``chain_launches``); its numbers must be finite and each
+                training stage must take its steps on the graphed step;
+18. kernels   - one JSON line with every kernel's launches, error, times,
                 share of its bound and store-only floor, at the main
                 path's N=1000 and at N=2600, the recipe's launches (and
                 its state changes' launches and differences), each
-                task's launches, the LSTM, bf16, runtime, native-loader and
-                pipeline runs' launches (graph replays included), the
-                kernel at the tasks' shapes and the graph phase's
-                numbers.
+                task's launches, the LSTM, bf16, runtime, native-loader,
+                pipeline and chain runs' launches (graph replays
+                included), the kernel at the tasks' shapes and the graph
+                phase's numbers.
 
 With ``--parent OLD/csrc/st_decoder.cu`` (an earlier source of the kernel
 whose C entry, ``st_decode_forward``, takes no ``slots`` argument) the
@@ -382,6 +393,11 @@ BACKGROUND_ATOL = 1e-5
 # kernel's wrapper the tangent is the plain decode's JVP of the same inputs,
 # so the two differ only where the card's sums run in another order.
 JVP_RTOL = 1e-4
+# The chain phase: 3bp_color's chain (the reference runner's 3bp_chain) at
+# cut depth, its curriculum stages' epochs and the pinned resume's, a save
+# every epoch.
+CHAIN_CURRICULUM = (1, 1, 1)
+CHAIN_PINNED = 2
 
 
 @contextmanager
@@ -2655,12 +2671,92 @@ def pipeline(bp_dir, batch_size=100):
     return stages
 
 
+def chain_launches(stage, epochs, n_train, valid_n, test_n, test40_n,
+                   batch_size):
+    """Decoder launches of one stage of the chain: a training stage's CLI
+    run of ``epochs`` (``expected_launches``: its seq-40 phase is the
+    seq-30 phase's counterpart), none in the surgery (host numpy),
+    fit_physics's (``tool_launches``), or a test phase alone: its eval
+    batch and visualization forward, two decodes each and a render per
+    refinement iteration (``recipe_decodes``)."""
+    kind = stage["kind"]
+    if kind == "train":
+        return expected_launches(epochs * (n_train // batch_size), valid_n,
+                                 test_n, test40_n, batch_size, epochs)
+    if kind == "surgery":
+        return 0
+    if kind == "fit":
+        return tool_launches(8)
+    return recipe_decodes(0, eval_batches(test40_n, batch_size), 1,
+                          refine_iters(stage["argv"]))[0]
+
+
+def chain_epochs(curriculum=CHAIN_CURRICULUM, pinned=CHAIN_PINNED):
+    """{stage: epochs} of the chain's training stages."""
+    out = {f"curriculum_{i}": e for i, e in enumerate(curriculum, 1)}
+    out["pinned"] = pinned
+    return out
+
+
+def chain(batch_size=100, data_dir=DATA_DIR, device="cuda",
+          curriculum=CHAIN_CURRICULUM, pinned=CHAIN_PINNED):
+    """3bp_color's chain (phase 17 of the module docstring) through the
+    reference runner at cut depth on the tracked files. Returns {stage:
+    {seconds, launches}} and the runner's result."""
+    import numpy as np
+    from paig_reproduction_tpu_torch import cli
+    from paig_reproduction_tpu_torch.tools import reference_runs as rr
+
+    base = tempfile.mkdtemp(prefix="paig_chain_")
+    stages = rr.chain_stages(curriculum, pinned, batch_size, save_every=1,
+                             eval_every=1)
+    out = rr.run_chain("3bp_chain", base, device, data_dir, stages=stages)
+    sizes = {}
+    for i in (0, 1):
+        with np.load(os.path.join(data_dir,
+                                  cli.TASK_TABLE["3bp_color"][i])) as d:
+            sizes[i] = [d[k].shape[0] for k in ("train_x", "valid_x",
+                                                "test_x")]
+    (n_train, valid_n, test_n), test40_n = sizes[0], sizes[1][2]
+    epochs = chain_epochs(curriculum, pinned)
+    result = {}
+    for stage in stages:
+        name = stage["name"]
+        row = out["stages"][name]
+        needed = chain_launches(stage, epochs.get(name, 0), n_train, valid_n,
+                                test_n, test40_n, batch_size)
+        result[name] = dict(seconds=row["wall_s"], launches=row["launches"])
+        print(f"chain stage {name}: {row['wall_s']:.3f} s wall, st_decode "
+              f"launches {row['launches']} (expected {needed})", flush=True)
+        if row["launches"] != needed:
+            raise AssertionError(f"chain: {name} did not decode through the "
+                                 f"kernel on every decode")
+        numbers = [v for key in ("valid", "test", "test_seq40")
+                   for v in (row.get(key) or {}).values()]
+        numbers += [row[k] for k in ("A", "A_pointwise") if k in row]
+        if not all(math.isfinite(v) for v in numbers):
+            raise AssertionError(f"chain: {name} has a number that is not "
+                                 f"finite: {row}")
+        if stage["kind"] == "test" and row["test"] is None:
+            raise AssertionError(f"chain: {name} logged no test line")
+        if stage["kind"] == "train":
+            if row["valid"] is None or row["test_seq40"] is None:
+                raise AssertionError(f"chain: {name} logged no valid eval "
+                                     f"or no seq-40 test line")
+            if row["steps"] != epochs[name] * (n_train // batch_size):
+                raise AssertionError(f"chain: {name} took {row['steps']} "
+                                     f"steps")
+            if device == "cuda":
+                check_fused_line(os.path.join(base, name, "log.txt"))
+    return result, out
+
+
 def kernels_line(launches, max_err, timings, jvp, runs):
     """The contract's ``{"kernels": [...]}`` line: the kernel's launches on
     the main path, its error, its times at the main path's N=1000 and the
     seq-30 N=2600 (``timings`` by shape), the ``jvp`` numbers, the other
     phases' launches (``runs`` by phase: recipe, tasks, lstm, bf16,
-    runtime, native, graph, pipeline) and its times at the tasks'
+    runtime, native, graph, pipeline, chain) and its times at the tasks'
     shapes."""
     main_path = timings[TIMED_SHAPES[0]]
     seq30 = timings[2600, 32, 16, 2, 3]
@@ -2703,6 +2799,8 @@ def kernels_line(launches, max_err, timings, jvp, runs):
         "native_loader_fused_launches": runs["native"]["fused_launches"],
         "pipeline_launches": {k: v["launches"]
                               for k, v in runs["pipeline"].items()},
+        "chain_launches": {k: v["launches"]
+                           for k, v in runs["chain"].items()},
         "graph": {"param_rel": gr["param_rel"], "bitwise": gr["bitwise"],
                   "eval_rel": gr["eval_rel"], "steps": gr["steps"]},
         "task_shapes": [dict(
@@ -2840,13 +2938,19 @@ def main(argv=None):
         print(f"pipeline on {smi}: " + "; ".join(
             f"{k} {v['seconds']:.3f} s" for k, v in pipe.items()))
 
+    with phase("chain"):
+        ch, _ = chain()
+        print(f"chain on {smi}: " + "; ".join(
+            f"{k} {v['seconds']:.3f} s, {v['launches']} launches"
+            for k, v in ch.items()))
+
     with phase("kernels"):
         print(kernels_line(launches, max_err, timings,
                            dict(primal_max_abs_err=jvp_err,
                                 tangent_max_rel_err=jvp_rel, **jvp_times),
                            dict(recipe=rec, tasks=tasks, lstm=lstm,
                                 bf16=bf16, runtime=rt, native=nat, graph=gr,
-                                pipeline=pipe)))
+                                pipeline=pipe, chain=ch)))
 
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

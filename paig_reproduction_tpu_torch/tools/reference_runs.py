@@ -36,6 +36,19 @@ timestamp: the code they ran is the JAX package's of that day, not
 necessarily the package as it stands (``spring_one5``'s log, of
 2026-08-18, predates the rescue's stall guard). It runs on the card;
 without a CUDA device it raises unless ``--device=cpu`` is given.
+
+``--run 3bp_chain`` is a chained run (``CHAINS``): the stages through which
+the JAX package met the bars on 3bp_color, each in its own directory under
+``--save_dir`` (``chain_stages``): a slot curriculum of 1, 2 and 3 active
+slots warm-started from the spring trunk ``TRUNK``, the all-slot surgery
+(``tools/slot_rescue.py``), a 1000-epoch resume with the background
+pinned, ``tools/fit_physics.py --write`` (gravity's A) and both test phases
+with the flags of ``benchmarks/3bp_test_log.txt``'s and
+``3bp_refine_test_log.txt``'s headers. The same command resumes a chain cut
+by a time limit at the stage it was cut in, and runs no finished stage
+again; it prints one line with each stage's valid recons beside the JAX
+package's record (``CHAIN_RECORD``), A, both test lines beside the logs'
+and the bars, and each stage's wall seconds, steps and launches.
 """
 from __future__ import annotations
 
@@ -122,6 +135,101 @@ RUNS = {
         bars=BALL_BARS, physics=None),
 }
 
+# 3bp_color's chain: the JAX package met the bars on 3bp_color only through
+# these stages (benchmarks/CONVERGENCE.md:393-409, :447-457), and its end is
+# scored by benchmarks/3bp_test_log.txt and 3bp_refine_test_log.txt.
+# TRUNK is runs/ph7 (the spring_color run of 2026-08-16 that CONVERGENCE's
+# round-3 table names) as the port's checkpoint (tests/ph7_trunk.py writes
+# it): what the JAX package's restore of runs/ph7 into a 3bp_color run
+# takes, the tensors whose name and shape fit and the step (37500), and none
+# of its optimizer state. The step carries into every curriculum stage, so
+# their LR schedules are past their anneal: they train at base_lr / 5.
+TRUNK = os.path.join(REPO, "data", "checkpoints", "ph7_spring")
+# The 3bp recipe (SURVEY.md:278, the reference README:67) with the test
+# log's --learn_frame_offset.
+_3BP_RECIPE = ["--task=3bp_color", "--base_lr=1e-3", "--autoencoder_loss=5.0",
+               "--color", "--learn_frame_offset"]
+CURRICULUM_EPOCHS = (300, 300, 300)
+PINNED_EPOCHS = 1000
+SURGERY_FLAGS = ["--rescue_slot=all", "--disk_radius=3",
+                 "--set_background=median"]
+TEST_LOGS = {"test": "benchmarks/3bp_test_log.txt",
+             "test_refine": "benchmarks/3bp_refine_test_log.txt"}
+FIT_JSON = "fit.json"
+# What the JAX package's chain reached at each stage (CONVERGENCE.md; no log
+# holds these): the valid recons of a warm trunk from spring (all three
+# slots live, no curriculum) and of the slot curriculum's best checkpoint;
+# the pinned resume's valid recons, its test recons on the train file's
+# test split and its pred; gravity's A = g*m^2 written into runs/3bp_fit_ckpt
+# beside the generator's (g60_m1 in the files' names).
+CHAIN_RECORD = {"trunk_valid_recons": 13.7, "curriculum_valid_recons": 11.6,
+                "pinned_valid_recons": 1.038, "pinned_test_recons": 1.049,
+                "pinned_test_pred": 45.8, "A": 59.58, "A_generator": 60.0}
+
+
+def test_flags(log) -> list:
+    """A test log's flag header less ``--ckpt_dir`` and ``--save_dir``."""
+    return [a for a in parse_log(os.path.join(REPO, log))["header"]
+            if not a.startswith(("--ckpt_dir=", "--save_dir="))]
+
+
+def chain_stages(curriculum=CURRICULUM_EPOCHS, pinned=PINNED_EPOCHS,
+                 batch_size=100, save_every=50, eval_every=10) -> list:
+    """3bp_color's chain, stage by stage: its ``name``, ``kind`` (train,
+    surgery, fit or test), ``start`` (the stage whose checkpoint it starts
+    from, or a directory) and ``argv`` (the flags of the CLI or the tool
+    but the directories, the data and the device).
+
+    The curriculum stages train 1, then 2, then 3 active slots, the first
+    from TRUNK, each later one from the one before (its step, optimizer
+    and recipe state). Each stage's ``--epochs`` counts the chain's epochs
+    through it, with ``--resume_remaining_epochs``: a stage trains its own
+    epochs, and the same flags resume it where a time limit cut it. Then
+    the all-slot surgery, the pinned resume (``--bg_lr_mult=0``; the
+    surgery's checkpoint starts the step, the optimizer and the chain's
+    epochs at 0, so its LR anneals after 750 of its 1000 epochs),
+    ``fit_physics --write`` on a copy of its checkpoint, and both test
+    phases with their logs' flags. A training stage evaluates every
+    ``eval_every`` epochs (the CLI's default is every epoch: 0.6 of the
+    1.7 s a 3bp epoch takes on the card); the epochs given are multiples
+    of it, so each stage's last epoch is evaluated."""
+    model = _3BP_RECIPE + [f"--batch_size={batch_size}",
+                           f"--save_every_n_epochs={save_every}",
+                           f"--eval_every_n_epochs={eval_every}",
+                           "--seed=0"]
+    stages, start, total = [], TRUNK, 0
+    for slots, epochs in enumerate(curriculum, 1):
+        total += epochs
+        stages.append(dict(name=f"curriculum_{slots}", kind="train",
+                           start=start, argv=model + [
+                               f"--active_slots={slots}",
+                               f"--epochs={total}"]))
+        start = f"curriculum_{slots}"
+    stages += [
+        dict(name="surgery", kind="surgery", start=start,
+             argv=["--task=3bp_color"] + SURGERY_FLAGS),
+        dict(name="pinned", kind="train", start="surgery",
+             argv=model + [f"--epochs={pinned}", "--bg_lr_mult=0"]),
+        dict(name="fit", kind="fit", start="pinned",
+             argv=["--task=3bp_color", "--write"])]
+    stages += [dict(name=name, kind="test", start="fit",
+                    argv=test_flags(log), log=log)
+               for name, log in TEST_LOGS.items()]
+    return stages
+
+
+# name -> a chained run: the function that lists its stages, where they
+# were read, and its bars.
+CHAINS = {
+    "3bp_chain": dict(
+        stages=chain_stages,
+        argv_from="benchmarks/CONVERGENCE.md:447-457 (the warm trunk and "
+                  "the slot curriculum, reconstructed: no log or epoch "
+                  "count was kept), :393-409 (the surgery, the 1000-epoch "
+                  "pinned resume, the gravity fit), the test logs' headers",
+        bars=BALL_BARS),
+}
+
 KEYS = ("pred", "recons", "extrap")
 _EVAL = re.compile(r"\b(valid|test) - epoch=(\d+) (\S.*)$")
 _ARM = re.compile(r"discovery restart arm (\d+)/(\d+): valid recons (\S+) ")
@@ -147,7 +255,8 @@ def parse_log(path) -> dict:
     ``INFO:paig:...`` lines, or the port's log.txt): ``test`` and
     ``test_epoch`` of its last ``test - epoch=`` line, ``valid`` {loop
     epoch: losses}, the arms' valid recons, the trigger's epoch, the
-    rescues' epochs, the ``fit_physics:`` (k, equil) fits, the flag
+    rescues' epochs, the ``fit_physics:`` (k, equil) fits, ``tests``
+    (every ``test - epoch=`` line's (epoch, losses), in order), the flag
     ``header`` (the ``--`` lines after the first line naming the entry
     script) and ``segments`` (1, and 1 more for each resume the runner
     marked: its loop epochs count on from the checkpoint's), and
@@ -155,8 +264,9 @@ def parse_log(path) -> dict:
     (``YYYY-MM-DD HH:MM:SS``; None without one), which dates the run. A
     timestamped line seen before is skipped: the thinned JAX logs repeat
     their first lines after the flag header."""
-    out = dict(test=None, test_epoch=None, valid={}, arms=[], trigger=None,
-               rescues=[], fits=[], header=[], segments=1, first_logged=None)
+    out = dict(test=None, test_epoch=None, tests=[], valid={}, arms=[],
+               trigger=None, rescues=[], fits=[], header=[], segments=1,
+               first_logged=None)
     offset = 0
     in_header = False
     seen = set()
@@ -192,6 +302,7 @@ def parse_log(path) -> dict:
                     out["valid"][offset + int(m.group(2))] = losses
                 else:
                     out["test"], out["test_epoch"] = losses, int(m.group(2))
+                    out["tests"].append((int(m.group(2)), losses))
                 continue
             m = _ARM.search(line)
             if m:
@@ -293,11 +404,17 @@ def resume_decision(save_dir) -> str:
     return "test" if parsed["test"] is not None else "resume"
 
 
-def _loop_epochs_done(save_dir) -> int:
+def _ckpt_scalar(ckpt_dir, key) -> int:
+    """``key`` of ``ckpt_dir``'s model.ckpt (0 where it lacks one)."""
     import torch
-    ckpt = torch.load(os.path.join(save_dir, "model.ckpt"),
+    ckpt = torch.load(os.path.join(ckpt_dir, "model.ckpt"),
                       map_location="cpu", weights_only=True)
-    return int(max(ckpt["total_epochs_done"], ckpt["epoch"]))
+    return int(ckpt.get(key, 0))
+
+
+def _loop_epochs_done(save_dir) -> int:
+    return max(_ckpt_scalar(save_dir, "total_epochs_done"),
+               _ckpt_scalar(save_dir, "epoch"))
 
 
 def _append_log(save_dir, message):
@@ -329,16 +446,58 @@ def _on_term(signum, frame):
     raise _Terminated()
 
 
-def run(name, save_dir, device="cuda", data_dir=None, seed=0):
-    """Runs (or resumes, or finishes) reference run ``name`` at ``seed`` in
-    ``save_dir`` through the port's CLI. Returns ``compare``'s result."""
+def _segment(seg, fn, device):
+    """Runs ``fn()`` as one segment of a run: a SIGTERM stops it, the
+    kernel's launch count starts at 0, and the log handlers it adds are
+    removed after it. Sets ``seg``'s ``finished``, ``wall_s`` and
+    ``launches``; returns fn's result (None where it was stopped)."""
     import torch
-    from paig_reproduction_tpu_torch import cli
     from paig_reproduction_tpu_torch.ops.cuda import st_decoder as sd
+    handlers = list(logger.handlers)
+    old_term = signal.signal(signal.SIGTERM, _on_term)
+    sd.LAUNCHES = 0
+    t0 = time.perf_counter()
+    result = None
+    try:
+        result = fn()
+        if device.startswith("cuda"):
+            torch.cuda.synchronize()
+        seg["finished"] = True
+    except _Terminated:
+        pass
+    finally:
+        seg["wall_s"] = time.perf_counter() - t0
+        seg["launches"] = sd.LAUNCHES
+        signal.signal(signal.SIGTERM, old_term)
+        for h in set(logger.handlers) - set(handlers):
+            logger.removeHandler(h)
+            h.close()
+    return result
 
+
+def _cli(argv):
+    """The port's CLI on ``argv``, with ``sys.argv`` as a shell would set it
+    (the trainer logs it as the run's flag header)."""
+    from paig_reproduction_tpu_torch import cli
+    old_argv = sys.argv
+    sys.argv = [os.path.join(os.path.dirname(cli.__file__), "cli.py")] + argv
+    try:
+        return cli.main(argv)
+    finally:
+        sys.argv = old_argv
+
+
+def _need_card(device):
+    import torch
     if device.startswith("cuda") and not torch.cuda.is_available():
         raise SystemExit("reference_runs: no CUDA device; these runs are "
                          "made on the card (--device=cpu for small tests)")
+
+
+def run(name, save_dir, device="cuda", data_dir=None, seed=0):
+    """Runs (or resumes, or finishes) reference run ``name`` at ``seed`` in
+    ``save_dir`` through the port's CLI. Returns ``compare``'s result."""
+    _need_card(device)
     spec = RUNS[name]
     task = flag(spec["argv"], "task")
     data_dir = data_dir or data_dir_for(task)
@@ -373,31 +532,16 @@ def run(name, save_dir, device="cuda", data_dir=None, seed=0):
         argv += ["--test_mode", f"--ckpt_dir={save_dir}"]
     seg = {"kind": decision, "data_s": gen_s, "launches": 0, "wall_s": 0.0,
            "finished": False}
-    handlers = list(logger.handlers)
-    old_argv, old_term = sys.argv, signal.signal(signal.SIGTERM, _on_term)
-    sys.argv = [os.path.join(os.path.dirname(cli.__file__), "cli.py")] + argv
-    sd.LAUNCHES = 0
-    t0 = time.perf_counter()
     try:
-        trainer, _ = cli.main(argv)
-        if device.startswith("cuda"):
-            torch.cuda.synchronize()
-        seg["finished"] = True
-        if trainer is not None:
-            seg["end_step"] = int(trainer.step)
-    except _Terminated:
-        print(f"reference_runs: {name} stopped by SIGTERM; run the same "
-              f"command again to resume it", flush=True)
+        out = _segment(seg, lambda: _cli(argv), device)
+        if out is not None and out[0] is not None:
+            seg["end_step"] = int(out[0].step)
     finally:
-        seg["wall_s"] = time.perf_counter() - t0
-        seg["launches"] = sd.LAUNCHES
-        sys.argv = old_argv
-        signal.signal(signal.SIGTERM, old_term)
-        for h in set(logger.handlers) - set(handlers):
-            logger.removeHandler(h)
-            h.close()
         record["segments"].append(seg)
         _write_sidecar(save_dir, record)
+    if not seg["finished"]:
+        print(f"reference_runs: {name} stopped by SIGTERM; run the same "
+              f"command again to resume it", flush=True)
     if device.startswith("cuda") and seg["launches"] == 0:
         raise AssertionError(f"{name}: no decode went through the CUDA "
                              f"kernel")
@@ -500,6 +644,264 @@ def compare(name, save_dir, data_dir=None) -> dict:
     return out
 
 
+def _stage_dir(save_dir, where) -> str:
+    return where if os.path.isabs(where) else os.path.join(save_dir, where)
+
+
+def stage_status(stage, stage_dir) -> str:
+    """What a chain's stage needs: ``done``, or for a training stage
+    ``resume_decision``'s answer, else ``fresh`` (a surgery without its
+    checkpoint, a fit without its record, a test phase without its line
+    is run again from its start)."""
+    kind = stage["kind"]
+    if kind == "train":
+        return resume_decision(stage_dir)
+    done = {"surgery": os.path.join(stage_dir, "model.ckpt"),
+            "fit": os.path.join(stage_dir, FIT_JSON)}.get(kind)
+    if done is not None:
+        return "done" if os.path.exists(done) else "fresh"
+    return "done" if resume_decision(stage_dir) == "done" else "fresh"
+
+
+def _echoed(fn, argv, path):
+    """fn(argv), its printed lines also written to ``path``: (fn's
+    result, the text)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            result = fn(argv)
+    finally:
+        print(buf.getvalue(), end="", flush=True)
+    with open(path, "w") as f:
+        f.write(buf.getvalue())
+    return result, buf.getvalue()
+
+
+_GRAVITY_FIT = re.compile(r"(pointwise|trajectory) gravity fit: "
+                          r"A=(?:g\*m\^2=)?(\S+) ")
+
+
+def _fit(argv, start_dir, stage_dir, data_dir, device):
+    """fit_physics with ``argv`` (``--write``) on a copy of ``start_dir``'s
+    checkpoint in ``stage_dir``; its printed fits and the written values go
+    to FIT_JSON."""
+    import shutil
+
+    from paig_reproduction_tpu_torch.tools import fit_physics
+    os.makedirs(stage_dir, exist_ok=True)
+    shutil.copyfile(os.path.join(start_dir, "model.ckpt"),
+                    os.path.join(stage_dir, "model.ckpt"))
+    fitted, printed = _echoed(fit_physics.main, argv + [
+        f"--ckpt_dir={stage_dir}", f"--data_dir={data_dir}",
+        f"--device={device}"], os.path.join(stage_dir, "fit_physics.txt"))
+    fits = {kind: float(a) for kind, a in _GRAVITY_FIT.findall(printed)}
+    with open(os.path.join(stage_dir, FIT_JSON), "w") as f:
+        json.dump(dict(A_pointwise=fits["pointwise"],
+                       A=fits["trajectory"],
+                       log_g=float(fitted["log_g"]),
+                       frame_offset=fitted["frame_offset"].tolist()), f)
+
+
+def _stage_fn(stage, status, save_dir, data_dir, device, seed):
+    """The call that runs ``stage`` from ``status`` (stage_status's)."""
+    import shutil
+
+    from paig_reproduction_tpu_torch.tools import slot_rescue
+    d = os.path.join(save_dir, stage["name"])
+    start = _stage_dir(save_dir, stage["start"])
+    where = [f"--data_dir={data_dir}", f"--device={device}"]
+    if stage["kind"] == "surgery":
+        argv = stage["argv"] + [f"--ckpt_dir={start}", f"--out_dir={d}",
+                                f"--data_dir={data_dir}"]
+        os.makedirs(d, exist_ok=True)
+        return lambda: _echoed(slot_rescue.main, argv,
+                               os.path.join(d, "slot_rescue.txt"))
+    if stage["kind"] == "fit":
+        return lambda: _fit(stage["argv"], start, d, data_dir, device)
+    if status in ("restart", "fresh") and os.path.exists(d):
+        shutil.rmtree(d)
+    if stage["kind"] == "test":
+        argv = stage["argv"] + [f"--ckpt_dir={start}", f"--save_dir={d}"]
+        return lambda: _cli(argv + where)
+    argv = [f"--seed={seed}" if a == "--seed=0" else a
+            for a in stage["argv"]] + [
+        "--use_ckpt", "--resume_remaining_epochs", f"--save_dir={d}"]
+    if status == "resume":
+        done = _loop_epochs_done(d) - _loop_epochs_done(start)
+        _append_log(d, RESUME_LINE % done)
+        print(f"reference_runs: resuming {stage['name']} from its checkpoint "
+              f"at its epoch {done}", flush=True)
+        argv.append(f"--ckpt_dir={d}")
+    elif status == "test":
+        argv += ["--test_mode", f"--ckpt_dir={d}"]
+    else:
+        argv.append(f"--ckpt_dir={start}")
+    return lambda: _cli(argv + where)
+
+
+def run_chain(name, save_dir, device="cuda", data_dir=None, seed=0,
+              stages=None):
+    """Runs chained run ``name`` at ``seed`` in ``save_dir``, each stage in
+    its own directory there, from the first stage not finished: a stage
+    that a SIGTERM cut resumes where it stopped, and a finished one is not
+    run again. Each segment's wall seconds and launches, and each training
+    stage's steps, go to the sidecar. ``stages`` replaces the run's own
+    (``chain_stages`` at another depth). Returns ``compare_chain``'s
+    result."""
+    _need_card(device)
+    spec = CHAINS[name]
+    data_dir = data_dir or data_dir_for("3bp_color")
+    record = _read_sidecar(save_dir)
+    if record.get("stages") and record.get("seed", 0) != seed:
+        raise SystemExit(f"reference_runs: {name} in {save_dir} ran at seed "
+                         f"{record.get('seed', 0)}; refusing to go on at "
+                         f"seed {seed}")
+    gen_s = ensure_data("3bp_color", data_dir)
+    os.makedirs(save_dir, exist_ok=True)
+    record.update(run=name, seed=seed, data_dir=data_dir)
+    record.setdefault("stages", {})
+    record.setdefault("steps", {})
+    record.pop("segments", None)
+    stages = stages or spec["stages"]()
+    for stage in stages:
+        d = os.path.join(save_dir, stage["name"])
+        status = stage_status(stage, d)
+        if status == "done":
+            continue
+        seg = {"kind": status, "data_s": gen_s, "launches": 0,
+               "wall_s": 0.0, "finished": False}
+        gen_s = 0.0
+        fn = _stage_fn(stage, status, save_dir, data_dir, device, seed)
+        try:
+            _segment(seg, fn, device)
+            if seg["finished"] and stage["kind"] == "train":
+                start = _stage_dir(save_dir, stage["start"])
+                record["steps"][stage["name"]] = (
+                    _ckpt_scalar(d, "step") - _ckpt_scalar(start, "step"))
+        finally:
+            record["stages"].setdefault(stage["name"], []).append(seg)
+            _write_sidecar(save_dir, record)
+        if not seg["finished"]:
+            print(f"reference_runs: {name} stopped by SIGTERM in "
+                  f"{stage['name']}; run the same command again to resume "
+                  f"it", flush=True)
+            raise SystemExit(3)
+        if (device.startswith("cuda") and stage["kind"] != "surgery"
+                and seg["launches"] == 0):
+            raise AssertionError(f"{name}: {stage['name']} decoded nothing "
+                                 f"through the CUDA kernel")
+    return compare_chain(name, save_dir, stages)
+
+
+def _fmt(t):
+    return ("none" if t is None else
+            " ".join(f"{k}={t[k]:.4f}" for k in KEYS))
+
+
+def compare_chain(name, save_dir, stages=None) -> dict:
+    """A chained run in ``save_dir`` (of ``stages``, by default the run's
+    own) against the JAX package's record: prints one line (each stage's
+    last valid recons, the pinned stage's test line, A, both test lines
+    beside their logs' and the bars, and each stage's wall seconds, steps
+    and launches) and a JSON line; returns its numbers."""
+    spec = CHAINS[name]
+    side = _read_sidecar(save_dir)
+    bars = spec["bars"]
+
+    def passes(t):
+        return t is not None and all(t[k] < v for k, v in bars.items())
+
+    listed = stages or spec["stages"]()
+    curriculum_end = next((s["start"] for s in listed
+                           if s["kind"] == "surgery"), None)
+    rows = {}
+    for stage in listed:
+        d = os.path.join(save_dir, stage["name"])
+        segs = side.get("stages", {}).get(stage["name"], [])
+        row = dict(kind=stage["kind"], segments=[s["kind"] for s in segs],
+                   wall_s=sum(s["wall_s"] for s in segs),
+                   launches=sum(s["launches"] for s in segs),
+                   steps=side.get("steps", {}).get(stage["name"]))
+        log = os.path.join(d, "log.txt")
+        if stage["kind"] == "train" and os.path.exists(log):
+            parsed = parse_log(log)
+            last = max(parsed["valid"]) if parsed["valid"] else None
+            row.update(valid_epoch=last, valid=parsed["valid"].get(last),
+                       test=None, test_seq40=None)
+            tests = parsed["tests"]
+            if tests and tests[-1][0] == 0 and len(tests) > 1:
+                row["test"], row["test_seq40"] = tests[-2][1], tests[-1][1]
+            elif tests:
+                row["test"] = tests[-1][1]
+        elif stage["kind"] == "test":
+            ref = parse_log(os.path.join(REPO, stage["log"]))
+            port = parse_log(log) if os.path.exists(log) else {"test": None}
+            row.update(test=port["test"], log_test=ref["test"],
+                       log_first_logged=ref["first_logged"],
+                       port_pass=passes(port["test"]),
+                       log_pass=passes(ref["test"]))
+        elif stage["kind"] == "fit" and os.path.exists(
+                os.path.join(d, FIT_JSON)):
+            with open(os.path.join(d, FIT_JSON)) as f:
+                row.update(json.load(f))
+        rows[stage["name"]] = row
+
+    def recons(row):
+        v = row.get("valid")
+        return "none" if v is None else f"{v['recons']:.4f}"
+
+    rec = CHAIN_RECORD
+    parts = []
+    for sname, row in rows.items():
+        if row["kind"] == "train":
+            part = f"{sname} valid recons {recons(row)}"
+            if sname == "curriculum_1":
+                part += (f" (record: the warm trunk's "
+                         f"{rec['trunk_valid_recons']})")
+            elif sname == curriculum_end:
+                part += (f" (record: the curriculum's "
+                         f"{rec['curriculum_valid_recons']})")
+            elif sname == "pinned":
+                test = row.get("test")
+                part += (", test pred / recons " + (
+                    "none" if test is None else
+                    f"{test['pred']:.4f} / {test['recons']:.4f}")
+                    + f" (record: valid {rec['pinned_valid_recons']}, test "
+                    f"{rec['pinned_test_pred']} / "
+                    f"{rec['pinned_test_recons']})")
+            parts.append(part)
+        elif row["kind"] == "fit":
+            parts.append(
+                "A=g*m^2 " + ("none" if "A" not in row else
+                              f"pointwise {row['A_pointwise']:.4f}, "
+                              f"trajectory (written) {row['A']:.4f}")
+                + f" (generator {rec['A_generator']:g}, record "
+                f"{rec['A']})")
+        elif row["kind"] == "test":
+            parts.append(
+                f"{sname}: port {_fmt(row['test'])} "
+                f"{'pass' if row['port_pass'] else 'miss'}; log "
+                f"(the JAX package's, first logged "
+                f"{row['log_first_logged']}) {_fmt(row['log_test'])} "
+                f"{'pass' if row['log_pass'] else 'miss'}")
+    line = (f"reference_runs: {name} (seed {side.get('seed', 0)}): "
+            + " | ".join(parts) + " | bars "
+            + " ".join(f"{k}<{v}" for k, v in bars.items()) + " | stages: "
+            + "; ".join(f"{s} {r['wall_s']:.1f} s, {r['steps']} steps, "
+                        f"{r['launches']} launches"
+                        for s, r in rows.items()))
+    out = dict(run=name, seed=side.get("seed", 0), stages=rows,
+               record=rec, bars=bars,
+               port_pass=all(r["port_pass"] for r in rows.values()
+                             if r["kind"] == "test"),
+               wall_s=sum(r["wall_s"] for r in rows.values()))
+    print(line, flush=True)
+    print(json.dumps(out), flush=True)
+    return out
+
+
 def mann_whitney(x, y) -> tuple:
     """The two-sided Mann-Whitney rank test of samples x and y: U counts
     the pairs in which x's value is the larger (a tie a half), and p comes
@@ -546,7 +948,8 @@ def compare_many(name, save_dirs, data_dir=None) -> dict:
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    p.add_argument("--run", required=True, choices=sorted(RUNS))
+    p.add_argument("--run", required=True, choices=sorted(RUNS)
+                   + sorted(CHAINS))
     p.add_argument("--save_dir", default="",
                    help="the run's save_dir (outside the repository, or "
                         "under a gitignored directory)")
@@ -563,6 +966,13 @@ def main(argv=None):
                    help="replaces the logged --seed=0 (the initial weights "
                         "and shuffles)")
     args = p.parse_args(argv)
+    if args.run in CHAINS:
+        if args.compare:
+            return [compare_chain(args.run, d) for d in args.compare]
+        if not args.save_dir:
+            p.error("--save_dir is required unless --compare is given")
+        return run_chain(args.run, args.save_dir, args.device,
+                         args.data_dir or None, args.seed)
     if len(args.compare) == 1:
         return compare(args.run, args.compare[0], args.data_dir or None)
     if args.compare:

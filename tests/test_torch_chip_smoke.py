@@ -586,6 +586,74 @@ def test_pipeline_helpers_count_and_parse_the_tools(tmp_path, monkeypatch,
         4, 4, 4, batch_size=4, epochs=1) == 2 * 16
 
 
+def test_chain_phase_counts_every_stage_on_the_cpu(tmp_path, monkeypatch,
+                                                  one_thread):
+    """The chain phase tiny on the CPU (8 train, 4 valid and 4 test
+    sequences of the tracked 3bp files, 4 of the seq-40 file; B=8, 1
+    epoch a curriculum stage, 2 pinned; fit_physics on 1 batch): every
+    stage's decodes, counted as calls of the kernel's wrapper, are what
+    chain_launches says, and each training stage's steps what its epochs
+    make; the chain_epochs it reads; a stage whose count is off fails the
+    phase."""
+    import functools
+
+    import numpy as np
+
+    from paig_reproduction_tpu_torch import cli
+    from paig_reproduction_tpu_torch.tools import fit_physics
+
+    data = os.path.join(os.path.dirname(chip_smoke.__file__), "data",
+                        "datasets")
+    (tmp_path / "3bp_color").mkdir()
+    for rel, n in zip(cli.TASK_TABLE["3bp_color"][:2], (8, 4)):
+        with np.load(os.path.join(data, rel)) as d:
+            np.savez(tmp_path / rel, train_x=d["train_x"][:n],
+                     valid_x=d["valid_x"][:4], test_x=d["test_x"][:4])
+    fused = tkernel.st_decode_fused
+
+    def counted(*a):
+        tkernel.LAUNCHES += 1
+        return fused(*a)
+
+    monkeypatch.setattr(tkernel, "st_decode_fused", counted)
+    monkeypatch.setenv("PAIG_VIZ_EXAMPLES", "1")
+    monkeypatch.setattr(fit_physics, "encoder_positions", functools.partial(
+        fit_physics.encoder_positions, n_batches=1, batch_size=8))
+    tool_launches = chip_smoke.tool_launches
+    monkeypatch.setattr(chip_smoke, "tool_launches",
+                        lambda n, f=1: tool_launches(1, f))
+    assert chip_smoke.chain_epochs() == {
+        "curriculum_1": 1, "curriculum_2": 1, "curriculum_3": 1,
+        "pinned": 2}
+    stages, out = chip_smoke.chain(batch_size=8, data_dir=str(tmp_path),
+                                   device="cpu")
+    assert {k: v["launches"] for k, v in stages.items()} == {
+        "curriculum_1": 18, "curriculum_2": 18, "curriculum_3": 18,
+        "surgery": 0, "pinned": 24, "fit": 4, "test": 4, "test_refine": 10}
+    assert all(v["seconds"] > 0 for v in stages.values())
+    assert {k: r["steps"] for k, r in out["stages"].items()
+            if r["kind"] == "train"} == {
+        "curriculum_1": 1, "curriculum_2": 1, "curriculum_3": 1, "pinned": 2}
+    # The same counts at B=100 on the tracked files: what the card's run
+    # must launch (20 steps an epoch, 200 valid and test sequences, 150
+    # seq-40 ones, fit_physics's 8 batches).
+    monkeypatch.setattr(chip_smoke, "tool_launches", tool_launches)
+    from paig_reproduction_tpu_torch.tools import reference_runs as rr
+    full = {s["name"]: chip_smoke.chain_launches(
+        s, chip_smoke.chain_epochs().get(s["name"], 0), 2000, 200, 200, 150,
+        100) for s in rr.chain_stages((1, 1, 1), 2, eval_every=1)}
+    assert full == {"curriculum_1": 62, "curriculum_2": 62,
+                    "curriculum_3": 62, "surgery": 0, "pinned": 108,
+                    "fit": 18, "test": 4, "test_refine": 10}
+    # A miscount fails the phase (the runner's result read again).
+    monkeypatch.setattr(rr, "run_chain", lambda *a, **k: out)
+    monkeypatch.setattr(chip_smoke, "tool_launches",
+                        lambda n, f=1: tool_launches(1, f) + 1)
+    with pytest.raises(AssertionError, match="fit did not decode"):
+        chip_smoke.chain(batch_size=8, data_dir=str(tmp_path),
+                         device="cpu")
+
+
 def test_slot_separation():
     import numpy as np
 
@@ -619,7 +687,9 @@ def test_kernels_line_has_every_phase(capsys):
         native=dict(launches=130, fused_launches=130),
         graph=dict(param_rel=0.0, bitwise=True, eval_rel=0.0, steps={}),
         pipeline={"discovery": dict(seconds=1.0, launches=2818),
-                  "slot_rescue": dict(seconds=1.0, launches=0)})
+                  "slot_rescue": dict(seconds=1.0, launches=0)},
+        chain={"curriculum_1": dict(seconds=21.5, launches=62),
+               "surgery": dict(seconds=0.6, launches=0)})
     line = chip_smoke.kernels_line(130, 5e-6, timings, {"jvp_ms": 1.0}, runs)
     assert "\n" not in line
     (kernel,) = json.loads(line)["kernels"]
@@ -630,6 +700,7 @@ def test_kernels_line_has_every_phase(capsys):
     assert kernel["route"] == "cuda" and kernel["launches"] == 130
     assert kernel["pipeline_launches"] == {"discovery": 2818,
                                            "slot_rescue": 0}
+    assert kernel["chain_launches"] == {"curriculum_1": 62, "surgery": 0}
     assert kernel["native_loader_fused_launches"] == 130
     assert kernel["task_launches"] == {"3bp_color": 72}
     assert kernel["lstm_launches"] == 11430

@@ -3,8 +3,12 @@
 writes, and the port's seed_sweep tool.
 
 * ``slot_rescue`` on ``runs/bounce_one1`` (``--rescue_slot=auto
-  --set_background=median``, the tracked bouncing file's median) and on
-  ``runs/spring500`` (``--rescue_slot=0``), each restored with orbax and
+  --set_background=median``, the tracked bouncing file's median), on
+  ``runs/spring500`` (``--rescue_slot=0``) and on a 3bp_color checkpoint
+  of the JAX package's initial weights at seed 0, written by its own
+  ``save_checkpoint`` (``tests/jax_3bp.py``), with 3bp_color's chain's
+  surgery (``--rescue_slot=all --disk_radius=3 --set_background=median``
+  at 18-px templates, three slots), each restored with orbax and
   converted as ``tests/test_torch_checkpoint.py`` does: every written
   parameter within 1e-6 of the JAX tool's output, converted (both are
   float32 numpy; the JAX tool's MLP products go through XLA's dot), the
@@ -27,6 +31,8 @@ import numpy as np
 import pytest
 import torch
 
+import jax_3bp
+
 from paig_reproduction_tpu_torch.convert import flax_checkpoint_to_port
 from paig_reproduction_tpu_torch.data.iterators import get_iterators
 from paig_reproduction_tpu_torch.models import PhysicsNet, jax_init
@@ -43,6 +49,8 @@ RESCUES = {
     "bounce_one1": ("bouncing_balls",
                     ["--rescue_slot=auto", "--set_background=median"]),
     "spring500": ("spring_color", ["--rescue_slot=0"]),
+    "3bp_init": ("3bp_color", ["--rescue_slot=all", "--disk_radius=3",
+                               "--set_background=median"]),
 }
 
 
@@ -54,6 +62,12 @@ def one_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def jax_3bp_dir(tmp_path_factory):
+    """The JAX package's 3bp_color checkpoint at seed 0 (tests/jax_3bp.py)."""
+    return jax_3bp.write(str(tmp_path_factory.mktemp("jax_3bp")))[0]
 
 
 def _orbax_tree(path):
@@ -72,15 +86,17 @@ def no_new_handlers():
         h.close()
 
 
-def _rescued(tmp_path, run, capsys):
-    """Both tools on runs/<run>: (the port's output dict, the JAX tool's
-    output converted, the lines each printed but the last)."""
+def _rescued(tmp_path, run, capsys, ckpt_dir=None):
+    """Both tools on the JAX checkpoint in ``ckpt_dir`` (by default
+    runs/<run>): (the port's output dict, the JAX tool's output converted,
+    the lines each printed but the last)."""
     task, flags = RESCUES[run]
+    ckpt_dir = ckpt_dir or os.path.join(REPO, "runs", run)
     spec = importlib.util.spec_from_file_location(
         "jax_slot_rescue", os.path.join(REPO, "tools", "slot_rescue.py"))
     jax_tool = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(jax_tool)
-    jax_tool.main([f"--ckpt_dir={os.path.join(REPO, 'runs', run)}",
+    jax_tool.main([f"--ckpt_dir={ckpt_dir}",
                    f"--out_dir={tmp_path / 'jax'}", f"--task={task}",
                    *flags])
     jax_lines = capsys.readouterr().out.splitlines()
@@ -88,7 +104,7 @@ def _rescued(tmp_path, run, capsys):
     src = tmp_path / "converted"
     src.mkdir()
     checkpoint.save_checkpoint(str(src), flax_checkpoint_to_port(
-        _orbax_tree(os.path.join(REPO, "runs", run, "model.ckpt"))))
+        _orbax_tree(os.path.join(ckpt_dir, "model.ckpt"))))
     slot_rescue.main([f"--ckpt_dir={src}", f"--out_dir={tmp_path / 'port'}",
                       f"--task={task}", *flags])
     lines = capsys.readouterr().out.splitlines()
@@ -99,8 +115,11 @@ def _rescued(tmp_path, run, capsys):
 
 
 @pytest.mark.parametrize("run", sorted(RESCUES))
-def test_slot_rescue_matches_jax(tmp_path, capsys, run):
-    ours, theirs, lines, jax_lines = _rescued(tmp_path, run, capsys)
+def test_slot_rescue_matches_jax(tmp_path, capsys, request, run):
+    ckpt_dir = (request.getfixturevalue("jax_3bp_dir") if run == "3bp_init"
+                else None)
+    ours, theirs, lines, jax_lines = _rescued(tmp_path, run, capsys,
+                                              ckpt_dir)
     assert lines == jax_lines
     assert any(line.startswith("rescuing slot ") for line in lines)
     assert set(ours) == {"model", "step"} and ours["step"] == 0
@@ -110,9 +129,13 @@ def test_slot_rescue_matches_jax(tmp_path, capsys, run):
         assert t.dtype == torch.float32, name
         np.testing.assert_allclose(t.numpy(), theirs["model"][name].numpy(),
                                    rtol=0, atol=PARAM_ATOL, err_msg=name)
-    if run == "bounce_one1":
+    if "--set_background=median" in RESCUES[run][1]:
         assert any(line.startswith("installing background")
                    for line in lines)
+    if run == "3bp_init":
+        assert [line for line in lines if line.startswith("rescuing")] == [
+            f"rescuing slot {i}: disk r=3.0, content [0.5, 0.5, 0.5]"
+            for i in range(3)]
 
 
 def test_trainer_restores_a_rescued_checkpoint(tmp_path, capsys, caplog,
