@@ -154,16 +154,22 @@ Phases, each printing its elapsed seconds:
                 seconds and its decoder launches, which must equal the
                 decodes it made;
 17. chain     - 3bp_color's multi-stage chain through the reference
-                runner (tools/reference_runs.py's 3bp_chain) at cut depth
+                runner (tools/reference_runs.py's CHAIN, 3bp_chain with
+                the prediction off through the curriculum) at cut depth
                 on the tracked files, B=100: the slot curriculum's three
                 stages (CHAIN_CURRICULUM epochs, the first warm-started
-                from the converted spring trunk), the all-slot surgery,
-                the pinned resume (CHAIN_PINNED epochs), ``fit_physics
-                --write`` and both test phases with their logs' flags. Each
-                stage prints its wall seconds and its decoder launches,
-                replays included, which must equal the decodes it made
-                (``chain_launches``); its numbers must be finite and each
-                training stage must take its steps on the graphed step;
+                from the converted spring trunk), the all-slot surgery, the
+                pinned resume (CHAIN_PINNED epochs), ``fit_physics
+                --write`` and both test phases with their logs' flags.
+                Each stage prints
+                its wall seconds and its decoder launches, replays and the
+                runner's readings of the velocity head included, which
+                must equal the decodes it made (``chain_launches``), and
+                each training stage the velocity head's state at its end
+                (``reference_runs.velocity_state``); its numbers must be
+                finite and each training stage must take its steps on the
+                graphed step;
+    Before the kernels line, one line with every phase's wall seconds.
 18. kernels   - one JSON line with every kernel's launches, error, times,
                 share of its bound and store-only floor, at the main
                 path's N=1000 and at N=2600, the recipe's launches (and
@@ -393,11 +399,17 @@ BACKGROUND_ATOL = 1e-5
 # kernel's wrapper the tangent is the plain decode's JVP of the same inputs,
 # so the two differ only where the card's sums run in another order.
 JVP_RTOL = 1e-4
-# The chain phase: 3bp_color's chain (the reference runner's 3bp_chain) at
-# cut depth, its curriculum stages' epochs and the pinned resume's, a save
-# every epoch.
+# The chain phase: 3bp_color's chain (the reference runner's CHAIN) at cut
+# depth, its curriculum stages' epochs and the pinned resume's, a save every
+# epoch.
 CHAIN_CURRICULUM = (1, 1, 1)
 CHAIN_PINNED = 2
+# The chain the phase drives: the one whose curriculum keeps the velocity
+# head alive (3bp_chain's own stages are held on the CPU by
+# tests/test_torch_chain.py).
+CHAIN = "3bp_chain_recons_warmup"
+# Each phase's wall seconds, in order (``phase``).
+PHASE_SECONDS = {}
 
 
 @contextmanager
@@ -405,7 +417,8 @@ def phase(name):
     t0 = time.perf_counter()
     print(f"== phase {name}", flush=True)
     yield
-    print(f"== phase {name}: {time.perf_counter() - t0:.2f} s", flush=True)
+    PHASE_SECONDS[name] = time.perf_counter() - t0
+    print(f"== phase {name}: {PHASE_SECONDS[name]:.2f} s", flush=True)
 
 
 # (N, img, T, o, ch): the main path's train (N=1000) and eval (N=800)
@@ -2068,6 +2081,14 @@ def run_ranks(mode, n, n_model, out, backend=None, fused=None, emulate="",
     variables when `n` is 0: one process outside any group, emulating the
     ranks with `emulate`), with `extra` flags after PARALLEL_ARGS. Returns
     their outputs."""
+    return finish_ranks(start_ranks(mode, n, n_model, out, backend, fused,
+                                    emulate, extra, env_extra), timeout)
+
+
+def start_ranks(mode, n, n_model, out, backend=None, fused=None, emulate="",
+                extra=(), env_extra=None):
+    """``run_ranks``' processes, started; ``finish_ranks`` waits for
+    them."""
     import socket
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
@@ -2090,6 +2111,11 @@ def run_ranks(mode, n, n_model, out, backend=None, fused=None, emulate="",
              f"--data_dir={DATA_DIR}", *extra], env=env, cwd=REPO,
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     atexit.register(lambda: [p.kill() for p in procs if p.poll() is None])
+    return procs
+
+
+def finish_ranks(procs, timeout=300):
+    """The outputs of ``start_ranks``' processes, once they have ended."""
     logs = [p.communicate(timeout=timeout)[0] for p in procs]
     for p, log in zip(procs, logs):
         if p.returncode:
@@ -2121,9 +2147,14 @@ def parallel():
     backend = "nccl" if cards >= 2 else "gloo"
     print(f"{cards} card(s): 2 ranks over {backend}")
     results = {"backend": backend, "cards": cards}
+    # Each group beside its one process (the pairs share the card; cuDNN
+    # picks its algorithms by heuristics, not by timing them, so sharing
+    # changes no result).
     for name, n_model in (("dp", 1), ("tp", 2)):
-        print(run_ranks("grads", 0, 1, path("one_" + name), emulate=name))
-        print(run_ranks("grads", 2, n_model, path(name), backend=backend))
+        one = start_ranks("grads", 0, 1, path("one_" + name), emulate=name)
+        two = start_ranks("grads", 2, n_model, path(name), backend=backend)
+        print(finish_ranks(one))
+        print(finish_ranks(two))
         ref, got = load("one_" + name), load(name)
         errors = parallel_errors(ref, got)
         results[name] = errors
@@ -2138,8 +2169,10 @@ def parallel():
             raise AssertionError(f"{name} split other kernels than the "
                                  f"one process: {list(got['split'])}")
     if cards < 2:
-        print(run_ranks("steps", 0, 1, path("one_steps"), fused="0"))
-        print(run_ranks("steps", 1, 1, path("nccl1"), backend="nccl"))
+        one = start_ranks("steps", 0, 1, path("one_steps"), fused="0")
+        nccl = start_ranks("steps", 1, 1, path("nccl1"), backend="nccl")
+        print(finish_ranks(one))
+        print(finish_ranks(nccl))
         got = load("nccl1")
         errors = parallel_errors(load("one_steps"), got)
         results["nccl_1_rank_graphed"] = errors
@@ -2675,14 +2708,17 @@ def chain_launches(stage, epochs, n_train, valid_n, test_n, test40_n,
                    batch_size):
     """Decoder launches of one stage of the chain: a training stage's CLI
     run of ``epochs`` (``expected_launches``: its seq-40 phase is the
-    seq-30 phase's counterpart), none in the surgery (host numpy),
-    fit_physics's (``tool_launches``), or a test phase alone: its eval
-    batch and visualization forward, two decodes each and a render per
+    seq-30 phase's counterpart) and the runner's reading of the velocity
+    head at the stage's start and after each of its saves (a save every
+    epoch here; one forward, two decodes, each), none in the surgery (host
+    numpy), fit_physics's (``tool_launches``), or a test phase alone: its
+    eval batch and visualization forward, two decodes each and a render per
     refinement iteration (``recipe_decodes``)."""
     kind = stage["kind"]
     if kind == "train":
         return expected_launches(epochs * (n_train // batch_size), valid_n,
-                                 test_n, test40_n, batch_size, epochs)
+                                 test_n, test40_n, batch_size,
+                                 epochs) + 2 * (epochs + 1)
     if kind == "surgery":
         return 0
     if kind == "fit":
@@ -2708,9 +2744,9 @@ def chain(batch_size=100, data_dir=DATA_DIR, device="cuda",
     from paig_reproduction_tpu_torch.tools import reference_runs as rr
 
     base = tempfile.mkdtemp(prefix="paig_chain_")
-    stages = rr.chain_stages(curriculum, pinned, batch_size, save_every=1,
-                             eval_every=1)
-    out = rr.run_chain("3bp_chain", base, device, data_dir, stages=stages)
+    stages = rr.CHAINS[CHAIN]["stages"](curriculum, pinned, batch_size,
+                                        save_every=1, eval_every=1)
+    out = rr.run_chain(CHAIN, base, device, data_dir, stages=stages)
     sizes = {}
     for i in (0, 1):
         with np.load(os.path.join(data_dir,
@@ -2740,9 +2776,18 @@ def chain(batch_size=100, data_dir=DATA_DIR, device="cuda",
         if stage["kind"] == "test" and row["test"] is None:
             raise AssertionError(f"chain: {name} logged no test line")
         if stage["kind"] == "train":
+            print(f"chain stage {name}: "
+                  f"{rr.velocity_line(row['velocity'])}", flush=True)
             if row["valid"] is None or row["test_seq40"] is None:
                 raise AssertionError(f"chain: {name} logged no valid eval "
                                      f"or no seq-40 test line")
+            velocity = row["velocity"] or {}
+            if velocity.get("epoch") != epochs[name] or not all(
+                    math.isfinite(v) for v in list(np.ravel(
+                        velocity["velocities"])) + [
+                        velocity["spread"], velocity["grad_norm"]]):
+                raise AssertionError(f"chain: {name}'s velocity head was "
+                                     f"not read at its end: {velocity}")
             if row["steps"] != epochs[name] * (n_train // batch_size):
                 raise AssertionError(f"chain: {name} took {row['steps']} "
                                      f"steps")
@@ -2943,6 +2988,10 @@ def main(argv=None):
         print(f"chain on {smi}: " + "; ".join(
             f"{k} {v['seconds']:.3f} s, {v['launches']} launches"
             for k, v in ch.items()))
+
+    print("phase seconds: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in PHASE_SECONDS.items())
+        + f"; {sum(PHASE_SECONDS.values()):.2f} in all", flush=True)
 
     with phase("kernels"):
         print(kernels_line(launches, max_err, timings,

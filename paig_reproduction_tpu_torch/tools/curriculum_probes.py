@@ -1,0 +1,161 @@
+"""Probes of 3bp_color's first curriculum stage: which flags keep the
+velocity head alive.
+
+In ``reference_runs --run 3bp_chain`` the velocity head (a tanh MLP shared
+across the objects) can be flung during ``curriculum_1`` (one live slot for
+three balls) to one velocity for every object, far outside the frame: the
+rollout then renders an empty frame, whose pred loss has no gradient with
+respect to the start velocity, and nothing pulls it back. Each probe trains
+``curriculum_1`` alone from the spring trunk, through ``run_chain`` (its
+stage directory ``DIR/<probe>/curriculum_1``, resumed as the chain resumes
+it), on top of the chain's stage flags:
+
+* ``base``: the chain's flags (the control);
+* ``a``: ``--vel_anchor=1.0``, ungated: the head tied to the encoder's
+  finite differences, a gradient that does not pass through the render;
+* ``b``: ``--recons_warmup --aux_warmup_epochs=N``: the prediction term off
+  through the curriculum. ``--aux_warmup_epochs`` counts the trainer's
+  global steps, from step 0, and the trunk carries step 37500 (1875 epochs
+  of 20 steps), so N is 1875 plus the curriculum's 900 epochs;
+* ``c``: ``--grad_clip=G``, G the median of the gradient norms that
+  ``velocity_state`` measured at ``base``'s checkpoints after its start;
+* ``d``: 100 epochs at one live slot instead of 300: ``base``'s
+  checkpoint at its epoch 100 (the same flags, seed and shuffles; the LR
+  schedule of both is past its anneal at the trunk's step).
+
+A probe keeps the head alive where, at the stage's end, the objects' start
+velocities differ (``spread`` over ``MIN_SPREAD``), lie within the
+generator's range (95th percentile of the speeds under ``MAX_SPEED``) and
+under half of the last hidden tanh layer's units are saturated: the head's
+output is linear in that layer, so with it saturated the output no longer
+depends on the positions. The first layer is not tested: it sees raw
+pixel positions (0 to 36), and at the trunk, before any 3bp training, 68%
+of its units are saturated on the first 20 valid sequences. Objects whose
+encoder positions coincide (slots that find no ball) share one velocity
+whatever the head's state. It prints one line a probe and a JSON line, and
+writes ``DIR/probes.json``:
+
+    python -m paig_reproduction_tpu_torch.tools.curriculum_probes \\
+        --save_dir DIR [--probes base a b c d]
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+
+from paig_reproduction_tpu_torch.tools import reference_runs as rr
+
+# 3bp_color's generator draws each start velocity component within +-2 px a
+# time unit (data/generate.py, vx0_max, vy0_max); gravity speeds the balls
+# up, so a head within three times that is within range.
+MAX_SPEED = 6.0
+# Objects whose start velocities lie closer than this (px a time unit, the
+# median over the batch of the largest gap) move as one.
+MIN_SPREAD = 0.1
+MAX_SATURATED = 0.5
+PROBE_EPOCHS = 300
+SHORT_EPOCHS = 100
+
+
+def probe_flags(name, base_records=()) -> list:
+    """The flags probe ``name`` adds to the chain's curriculum stages
+    (``c`` needs ``base``'s velocity records)."""
+    if name in ("base", "d"):
+        return []
+    if name == "a":
+        return ["--vel_anchor=1.0"]
+    if name == "b":
+        return rr.recons_warmup_flags()
+    if name == "c":
+        return ["--grad_clip=%.6g" % clip_norm(base_records)]
+    raise ValueError(name)
+
+
+def clip_norm(base_records) -> float:
+    """G of probe ``c``: the median gradient norm of ``base``'s
+    checkpoints after its start."""
+    norms = [r["grad_norm"] for r in base_records if r["epoch"] > 0]
+    if not norms:
+        raise ValueError("probe c needs base's velocity records")
+    return statistics.median(norms)
+
+
+def alive(state) -> dict:
+    """The three tests of a live head on a ``velocity_state`` record."""
+    return dict(differ=state["spread"] > MIN_SPREAD,
+                in_range=state["speed_p95"] < MAX_SPEED,
+                unsaturated=state["saturated"][-1] < MAX_SATURATED)
+
+
+def _stage(flags, epochs, batch_size, save_every, eval_every):
+    return rr.chain_stages((epochs,) + rr.CURRICULUM_EPOCHS[1:],
+                           batch_size=batch_size, save_every=save_every,
+                           eval_every=eval_every,
+                           curriculum_flags=flags)[:1]
+
+
+def run_probes(save_dir, names=("base", "a", "b", "c", "d"), device="cuda",
+               data_dir=None, seed=0, epochs=PROBE_EPOCHS,
+               short=SHORT_EPOCHS, batch_size=100, save_every=50,
+               eval_every=10) -> dict:
+    """Runs the probes ``names`` (``d`` and ``c`` after ``base``) in
+    ``save_dir``; returns {probe: its flags, epochs, end record, valid
+    losses at that epoch, the tests and whether it passed}."""
+    out = {}
+    base_dir = os.path.join(save_dir, "base", "curriculum_1")
+    for name in [n for n in ("base", "a", "b", "c", "d") if n in names]:
+        if name == "d":
+            end = [r for r in rr._velocity_records(base_dir)
+                   if r["epoch"] <= short][-1]
+            stage_dir, flags, n_epochs = base_dir, [], short
+        else:
+            flags = probe_flags(name, rr._velocity_records(base_dir))
+            rr.run_chain("3bp_chain", os.path.join(save_dir, name), device,
+                         data_dir, seed, stages=_stage(
+                             flags, epochs, batch_size, save_every,
+                             eval_every))
+            stage_dir = os.path.join(save_dir, name, "curriculum_1")
+            end = rr._velocity_records(stage_dir)[-1]
+            n_epochs = epochs
+        valid = rr.parse_log(os.path.join(stage_dir, "log.txt"))[
+            "valid"].get(end["epoch"])
+        tests = alive(end)
+        out[name] = dict(flags=flags, epochs=n_epochs, end=end, valid=valid,
+                         tests=tests, passed=all(tests.values()))
+        print(f"curriculum_probes: {name} ({' '.join(flags) or 'no flag'} "
+              f"on the chain's) at {n_epochs} epochs: valid recons "
+              f"{'none' if valid is None else '%.4f' % valid['recons']}; "
+              f"{rr.velocity_line(end)}; "
+              + ", ".join(f"{k} {v}" for k, v in tests.items())
+              + f": {'passed' if out[name]['passed'] else 'failed'}",
+              flush=True)
+    first = next((n for n in ("a", "b", "c", "d")
+                  if n in out and out[n]["passed"]), None)
+    print(f"curriculum_probes: first passing probe {first}", flush=True)
+    result = dict(probes=out, first_passing=first)
+    with open(os.path.join(save_dir, "probes.json"), "w") as f:
+        json.dump(result, f, indent=1)
+    print(json.dumps({k: {kk: v[kk] for kk in ("flags", "epochs", "valid",
+                                               "tests", "passed")}
+                      for k, v in out.items()}), flush=True)
+    return result
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--save_dir", required=True)
+    p.add_argument("--probes", nargs="+", default=["base", "a", "b", "c",
+                                                   "d"])
+    p.add_argument("--data_dir", default="")
+    p.add_argument("--device", default="cuda")
+    p.add_argument("--seed", type=int, default=0)
+    args = p.parse_args(argv)
+    os.makedirs(args.save_dir, exist_ok=True)
+    return run_probes(args.save_dir, args.probes, args.device,
+                      args.data_dir or None, args.seed)
+
+
+if __name__ == "__main__":
+    main()

@@ -49,6 +49,14 @@ by a time limit at the stage it was cut in, and runs no finished stage
 again; it prints one line with each stage's valid recons beside the JAX
 package's record (``CHAIN_RECORD``), A, both test lines beside the logs'
 and the bars, and each stage's wall seconds, steps and launches.
+``--run 3bp_chain_recons_warmup`` is the same chain with the prediction
+term off through the curriculum (``recons_warmup_flags``), which keeps the
+velocity head out of the state in which 3bp_chain's runs left it. In both,
+at a training stage's start and after each checkpoint it saves, the runner
+reads the velocity head (``velocity_state``: the rollout's start
+velocities, the saturated share of its tanh units, the gradient's norms)
+into the stage's ``velocity.jsonl``; the line gives each training stage's
+last reading.
 """
 from __future__ import annotations
 
@@ -174,7 +182,8 @@ def test_flags(log) -> list:
 
 
 def chain_stages(curriculum=CURRICULUM_EPOCHS, pinned=PINNED_EPOCHS,
-                 batch_size=100, save_every=50, eval_every=10) -> list:
+                 batch_size=100, save_every=50, eval_every=10,
+                 curriculum_flags=()) -> list:
     """3bp_color's chain, stage by stage: its ``name``, ``kind`` (train,
     surgery, fit or test), ``start`` (the stage whose checkpoint it starts
     from, or a directory) and ``argv`` (the flags of the CLI or the tool
@@ -192,7 +201,8 @@ def chain_stages(curriculum=CURRICULUM_EPOCHS, pinned=PINNED_EPOCHS,
     phases with their logs' flags. A training stage evaluates every
     ``eval_every`` epochs (the CLI's default is every epoch: 0.6 of the
     1.7 s a 3bp epoch takes on the card); the epochs given are multiples
-    of it, so each stage's last epoch is evaluated."""
+    of it, so each stage's last epoch is evaluated. ``curriculum_flags``
+    are appended to the curriculum stages' flags."""
     model = _3BP_RECIPE + [f"--batch_size={batch_size}",
                            f"--save_every_n_epochs={save_every}",
                            f"--eval_every_n_epochs={eval_every}",
@@ -203,7 +213,7 @@ def chain_stages(curriculum=CURRICULUM_EPOCHS, pinned=PINNED_EPOCHS,
         stages.append(dict(name=f"curriculum_{slots}", kind="train",
                            start=start, argv=model + [
                                f"--active_slots={slots}",
-                               f"--epochs={total}"]))
+                               f"--epochs={total}"] + list(curriculum_flags)))
         start = f"curriculum_{slots}"
     stages += [
         dict(name="surgery", kind="surgery", start=start,
@@ -218,8 +228,34 @@ def chain_stages(curriculum=CURRICULUM_EPOCHS, pinned=PINNED_EPOCHS,
     return stages
 
 
-# name -> a chained run: the function that lists its stages, where they
-# were read, and its bars.
+# The trunk's step (37500) in epochs of the 3bp train file (2000 sequences
+# at B=100: 20 steps an epoch).
+TRUNK_EPOCHS = 37500 // 20
+
+
+def recons_warmup_flags(curriculum=CURRICULUM_EPOCHS) -> list:
+    """The flags that keep the prediction term off through a curriculum of
+    ``curriculum`` epochs from the trunk: ``--recons_warmup`` weighs it by
+    the aux scale, which ``--aux_warmup_epochs`` holds at 0 for that many
+    epochs of global steps, counted from step 0, not from the stage's
+    start: the trunk's 1875 and the curriculum's. With the prediction off
+    the velocity head gets no gradient and keeps the trunk's weights
+    (tools/curriculum_probes.py, probe b: the first candidate under which
+    the head came out of curriculum_1 alive)."""
+    return ["--recons_warmup",
+            f"--aux_warmup_epochs={TRUNK_EPOCHS + sum(curriculum)}"]
+
+
+def _recons_warmup_stages(curriculum=CURRICULUM_EPOCHS, *args, **kwargs):
+    return chain_stages(curriculum, *args,
+                        curriculum_flags=recons_warmup_flags(curriculum),
+                        **kwargs)
+
+
+# name -> a chained run: the function that lists its stages (called as
+# chain_stages is: the curriculum's and the pinned stage's epochs, the
+# batch, the saves' and evals' periods), where they were read, and its
+# bars.
 CHAINS = {
     "3bp_chain": dict(
         stages=chain_stages,
@@ -227,6 +263,18 @@ CHAINS = {
                   "the slot curriculum, reconstructed: no log or epoch "
                   "count was kept), :393-409 (the surgery, the 1000-epoch "
                   "pinned resume, the gravity fit), the test logs' headers",
+        bars=BALL_BARS),
+    "3bp_chain_recons_warmup": dict(
+        stages=_recons_warmup_stages,
+        argv_from="3bp_chain's stages with the prediction term off through "
+                  "the curriculum (recons_warmup_flags): in 3bp_chain the "
+                  "velocity head is flung during curriculum_1 to one "
+                  "velocity for every object, outside the frame, where "
+                  "the rendered loss gives it no gradient back; the pinned "
+                  "stage, its step restarted at 0 by the surgery and "
+                  "without these flags, trains the prediction from its "
+                  "first step (tools/curriculum_probes.py chose it from "
+                  "four candidates)",
         bars=BALL_BARS),
 }
 
@@ -704,6 +752,158 @@ def _fit(argv, start_dir, stage_dir, data_dir, device):
                        frame_offset=fitted["frame_offset"].tolist()), f)
 
 
+VELOCITY_JSONL = "velocity.jsonl"
+# A hidden tanh unit of the velocity head counts as saturated where
+# |h| > SATURATED: its derivative, 1 - h^2, is then under 0.02.
+SATURATED = 0.99
+
+
+def valid_batch(data_dir, n=100, task="3bp_color"):
+    """The first ``n`` sequences of the task's valid split in the file's
+    order, as the model takes them: float32 [n, T, C, H, W] in [0, 1]."""
+    import numpy as np
+
+    from paig_reproduction_tpu_torch.cli import TASK_TABLE
+    with np.load(os.path.join(data_dir, TASK_TABLE[task][0])) as d:
+        x = d["valid_x"][:n]
+    return np.ascontiguousarray(np.transpose(
+        x.astype(np.float32) / 255.0, (0, 1, 4, 2, 3)))
+
+
+def velocity_state(ckpt_dir, data, device="cuda", argv=None) -> dict:
+    """The velocity head of ``ckpt_dir``'s model on the frames ``data``
+    (``valid_batch``'s), read only: the model of the CLI flags ``argv``
+    (by default the chain's model flags) with the checkpoint restored by
+    name as the trainer restores it (what it lacks keeps the JAX
+    package's initial value at ``--seed``). Returns
+
+    * ``velocities``: the rollout's start velocity of each object of the
+      first sequence (px a time unit);
+    * ``spread``: the median over the sequences of the largest distance
+      between two objects' start velocities (0 where the head gives every
+      object one velocity);
+    * ``speed``, ``speed_p95``: the median and 95th percentile of the
+      start speeds over every object and sequence;
+    * ``saturated``: for each hidden tanh layer of the head, the share of
+      its units with |h| > ``SATURATED`` over every object and sequence;
+    * ``pred``, ``recons``: the batch's eval losses;
+    * ``grad_norm``, ``vel_grad_norm``: the global norm of the train
+      loss's gradient (every term of the flags weighed in, aux scale 1)
+      over every parameter, and over the head's.
+
+    It consumes none of torch's random numbers and logs nothing."""
+    import numpy as np
+    import torch
+
+    from paig_reproduction_tpu_torch import cli
+    from paig_reproduction_tpu_torch.models import compute_losses
+    from paig_reproduction_tpu_torch.train.checkpoint import (
+        restore_checkpoint,
+    )
+    from paig_reproduction_tpu_torch.utils.misc import use_full_f32
+
+    if torch.device(device).type == "cuda":
+        use_full_f32()
+    argv = list(argv or _3BP_RECIPE + ["--batch_size=100", "--seed=0"])
+    args = cli.build_parser().parse_args(argv + [f"--device={device}"])
+    quiet = logger.disabled
+    logger.disabled = True
+    try:
+        with torch.random.fork_rng(devices=[]):
+            model = cli.build_model(args, data.shape[1]).to(device)
+        restore_checkpoint(ckpt_dir, model)
+    finally:
+        logger.disabled = quiet
+    head = model.velocity_encoder
+    hidden = []
+    hooks = [layer.register_forward_hook(
+        lambda mod, inp, out: hidden.append(torch.tanh(out.detach())))
+        for layer in list(head.dense)[:-1]]
+    try:
+        x = torch.from_numpy(np.asarray(data)).to(device)
+        out, aux = model(x)
+        train_loss, ev = compute_losses(model, x, out, aux["recons_out"],
+                                        aux, aux_scale=1.0)
+        train_loss.backward()
+    finally:
+        for h in hooks:
+            h.remove()
+
+    def norm(params):
+        return float(torch.sqrt(sum(torch.sum(p.grad.double() ** 2)
+                                    for p in params if p.grad is not None)))
+
+    cu2 = model.coord_units // 2
+    vel = aux["pos_vel_seq"][:, 0, cu2:].detach().double().cpu().numpy()
+    vel = vel.reshape(vel.shape[0], -1, 2)
+    gaps = np.linalg.norm(vel[:, :, None] - vel[:, None], axis=-1)
+    speeds = np.linalg.norm(vel, axis=-1)
+    return dict(
+        velocities=vel[0].tolist(),
+        spread=float(np.median(gaps.max(axis=(1, 2)))),
+        speed=float(np.median(speeds)),
+        speed_p95=float(np.percentile(speeds, 95)),
+        saturated=[float((h.abs() > SATURATED).double().mean())
+                   for h in hidden],
+        pred=float(ev["eval_pred_loss"].detach()),
+        recons=float(ev["eval_recons_loss"].detach()),
+        grad_norm=norm(model.parameters()),
+        vel_grad_norm=norm(head.parameters()))
+
+
+def _record_velocity(stage_dir, ckpt_dir, epoch, data, device, argv):
+    """Appends ``velocity_state`` of ``ckpt_dir`` at the stage's ``epoch``
+    to ``stage_dir``'s VELOCITY_JSONL, unless its last record is of that
+    epoch."""
+    if [r["epoch"] for r in _velocity_records(stage_dir)][-1:] == [epoch]:
+        return
+    state = dict(epoch=epoch, step=_ckpt_scalar(ckpt_dir, "step"),
+                 **velocity_state(ckpt_dir, data, device, argv))
+    with open(os.path.join(stage_dir, VELOCITY_JSONL), "a") as f:
+        f.write(json.dumps(state) + "\n")
+
+
+def _velocity_records(stage_dir) -> list:
+    path = os.path.join(stage_dir, VELOCITY_JSONL)
+    if not os.path.exists(path):
+        return []
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def _measuring_velocity(fn, stage_dir, start_dir, fresh, data_dir, device,
+                        argv):
+    """``fn`` (a training stage's CLI run) that also writes the velocity
+    head's state (``_record_velocity``) of every checkpoint the trainer
+    saves in ``stage_dir``, and at the first of a stage that starts
+    ``fresh`` that of its start: the stage's epoch of a fling can be read
+    off."""
+    from paig_reproduction_tpu_torch.train.trainer import Trainer
+
+    def run():
+        data = valid_batch(data_dir, int(flag(argv, "batch_size", 100)))
+        base = _loop_epochs_done(start_dir)
+        save = Trainer.save
+
+        def save_and_measure(self):
+            ours = self._writer and os.path.samefile(self.save_dir,
+                                                     stage_dir)
+            if ours and fresh and not _velocity_records(stage_dir):
+                _record_velocity(stage_dir, start_dir, 0, data, device, argv)
+            save(self)
+            if ours:
+                _record_velocity(stage_dir, stage_dir,
+                                 _loop_epochs_done(stage_dir) - base, data,
+                                 device, argv)
+
+        Trainer.save = save_and_measure
+        try:
+            return fn()
+        finally:
+            Trainer.save = save
+    return run
+
+
 def _stage_fn(stage, status, save_dir, data_dir, device, seed):
     """The call that runs ``stage`` from ``status`` (stage_status's)."""
     import shutil
@@ -725,9 +925,10 @@ def _stage_fn(stage, status, save_dir, data_dir, device, seed):
     if stage["kind"] == "test":
         argv = stage["argv"] + [f"--ckpt_dir={start}", f"--save_dir={d}"]
         return lambda: _cli(argv + where)
-    argv = [f"--seed={seed}" if a == "--seed=0" else a
-            for a in stage["argv"]] + [
-        "--use_ckpt", "--resume_remaining_epochs", f"--save_dir={d}"]
+    model = [f"--seed={seed}" if a == "--seed=0" else a
+             for a in stage["argv"]]
+    argv = model + ["--use_ckpt", "--resume_remaining_epochs",
+                    f"--save_dir={d}"]
     if status == "resume":
         done = _loop_epochs_done(d) - _loop_epochs_done(start)
         _append_log(d, RESUME_LINE % done)
@@ -738,7 +939,9 @@ def _stage_fn(stage, status, save_dir, data_dir, device, seed):
         argv += ["--test_mode", f"--ckpt_dir={d}"]
     else:
         argv.append(f"--ckpt_dir={start}")
-    return lambda: _cli(argv + where)
+    return _measuring_velocity(lambda: _cli(argv + where), d, start,
+                               status in ("restart", "fresh"), data_dir,
+                               device, model)
 
 
 def run_chain(name, save_dir, device="cuda", data_dir=None, seed=0,
@@ -795,6 +998,22 @@ def run_chain(name, save_dir, device="cuda", data_dir=None, seed=0,
     return compare_chain(name, save_dir, stages)
 
 
+def velocity_line(state) -> str:
+    """A ``_record_velocity`` record in words."""
+    if state is None:
+        return "velocity head not measured"
+    return ("velocity head at its epoch %d: start velocities of the first "
+            "valid sequence %s px a time unit, spread %.4f, speed median / "
+            "p95 %.4f / %.4f, saturated %s, batch pred / recons %.4f / "
+            "%.4f, gradient norm %.4g (head %.4g)" % (
+                state["epoch"], " ".join(
+                    "(%.2f, %.2f)" % tuple(v) for v in state["velocities"]),
+                state["spread"], state["speed"], state["speed_p95"],
+                "/".join("%.3f" % s for s in state["saturated"]),
+                state["pred"], state["recons"], state["grad_norm"],
+                state["vel_grad_norm"]))
+
+
 def _fmt(t):
     return ("none" if t is None else
             " ".join(f"{k}={t[k]:.4f}" for k in KEYS))
@@ -835,6 +1054,8 @@ def compare_chain(name, save_dir, stages=None) -> dict:
                 row["test"], row["test_seq40"] = tests[-2][1], tests[-1][1]
             elif tests:
                 row["test"] = tests[-1][1]
+            records = _velocity_records(d)
+            row["velocity"] = records[-1] if records else None
         elif stage["kind"] == "test":
             ref = parse_log(os.path.join(REPO, stage["log"]))
             port = parse_log(log) if os.path.exists(log) else {"test": None}
@@ -871,7 +1092,7 @@ def compare_chain(name, save_dir, stages=None) -> dict:
                     + f" (record: valid {rec['pinned_valid_recons']}, test "
                     f"{rec['pinned_test_pred']} / "
                     f"{rec['pinned_test_recons']})")
-            parts.append(part)
+            parts.append(part + ", " + velocity_line(row.get("velocity")))
         elif row["kind"] == "fit":
             parts.append(
                 "A=g*m^2 " + ("none" if "A" not in row else

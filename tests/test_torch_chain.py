@@ -240,13 +240,22 @@ def test_gravity_fit_matches_jax(jax_3bp_dirs, tmp_path, monkeypatch,
                                    atol=POS_ATOL, err_msg=name)
 
 
-def test_chain_stages_are_the_records():
+@pytest.mark.parametrize("chain", sorted(rr.CHAINS))
+def test_chain_stages_are_the_records(chain):
     """The curriculum: 1, 2, 3 active slots, each later stage from the one
     before, the first from the trunk, each stage's --epochs counting the
     chain's epochs through it; the surgery's flags; the pinned resume's
     1000 epochs with the background frozen; the test phases' flags their
-    logs' headers less the directories."""
-    stages = rr.CHAINS["3bp_chain"]["stages"]()
+    logs' headers less the directories. 3bp_chain_recons_warmup's
+    curriculum stages add --recons_warmup and an --aux_warmup_epochs
+    that counts the trunk's 1875 epochs (its step, 37500, at 20 steps an
+    epoch) and the curriculum's 900, so the prediction term stays off to
+    the curriculum's last step; nothing else differs, and its pinned stage
+    (whose step the surgery restarts at 0) trains the prediction from its
+    first step."""
+    stages = rr.CHAINS[chain]["stages"]()
+    warm = chain == "3bp_chain_recons_warmup"
+    extra = ["--recons_warmup", "--aux_warmup_epochs=2775"] if warm else []
     assert [s["name"] for s in stages] == [
         "curriculum_1", "curriculum_2", "curriculum_3", "surgery", "pinned",
         "fit", "test", "test_refine"]
@@ -261,12 +270,20 @@ def test_chain_stages_are_the_records():
         args = parser.parse_args(stage["argv"])
         assert (args.task, args.base_lr, args.autoencoder_loss, args.color,
                 args.learn_frame_offset, args.batch_size, args.active_slots,
-                args.epochs, args.seed, args.bg_lr_mult) == (
-            "3bp_color", 1e-3, 5.0, True, True, 100, slots, total, 0, 1.0)
+                args.epochs, args.seed, args.bg_lr_mult, args.vel_anchor,
+                args.recons_warmup, args.aux_on_recons) == (
+            "3bp_color", 1e-3, 5.0, True, True, 100, slots, total, 0, 1.0,
+            0.0, warm, 0.0)
+        assert args.aux_warmup_epochs * 20 == (
+            37500 + sum(rr.CURRICULUM_EPOCHS) * 20 if warm else 0)
         assert args.epochs % args.eval_every_n_epochs == 0
+        assert stage["argv"] == rr.chain_stages()[slots - 1]["argv"] + extra
     pinned = parser.parse_args(stages[4]["argv"])
     assert (pinned.epochs, pinned.bg_lr_mult, pinned.active_slots,
-            pinned.eval_every_n_epochs) == (1000, 0.0, 0, 10)
+            pinned.eval_every_n_epochs, pinned.recons_warmup,
+            pinned.aux_warmup_epochs) == (1000, 0.0, 0, 10, False, 0)
+    assert [s["argv"] for s in stages[3:]] == [
+        s["argv"] for s in rr.chain_stages()[3:]]
     assert stages[3]["argv"] == ["--task=3bp_color", "--rescue_slot=all",
                                  "--disk_radius=3", "--set_background=median"]
     for stage in stages[6:]:
@@ -296,15 +313,16 @@ class _Cut(Exception):
     pass
 
 
+@pytest.mark.parametrize("chain", sorted(rr.CHAINS))
 def test_chain_runs_cut_and_resumed_on_the_cpu(tmp_path, monkeypatch,
-                                               no_new_handlers):
+                                               no_new_handlers, chain):
     monkeypatch.setenv("PAIG_VIZ_EXAMPLES", "1")
     data = tmp_path / "data"
     _tiny_3bp(data)
     monkeypatch.setattr(fit_physics, "encoder_positions", functools.partial(
         fit_physics.encoder_positions, n_batches=1, batch_size=8))
-    stages = rr.chain_stages((1, 1, 1), 2, batch_size=8, save_every=1,
-                             eval_every=1)
+    stages = rr.CHAINS[chain]["stages"]((1, 1, 1), 2, batch_size=8,
+                                        save_every=1, eval_every=1)
     save_dir = tmp_path / "chain"
     ran = []
     cli_call, echoed = rr._cli, rr._echoed
@@ -330,24 +348,24 @@ def test_chain_runs_cut_and_resumed_on_the_cpu(tmp_path, monkeypatch,
     monkeypatch.setattr(rr, "_echoed", spy_echoed)
     monkeypatch.setattr(Trainer, "save", save_then_stop)
 
-    def chain():
-        return rr.run_chain("3bp_chain", str(save_dir), "cpu", str(data),
+    def run():
+        return rr.run_chain(chain, str(save_dir), "cpu", str(data),
                             stages=stages)
 
     cut = {"at": "pinned"}
     with pytest.raises(SystemExit):
-        chain()
+        run()
     assert [stage_of(a) for a in ran] == [
         "curriculum_1", "curriculum_2", "curriculum_3", "surgery", "pinned"]
     assert not (save_dir / "pinned").exists()
     cut["at"], ran[:] = "pinned_epoch", []
     with pytest.raises(SystemExit):
-        chain()
+        run()
     assert [stage_of(a) for a in ran] == ["pinned"]
     assert rr.resume_decision(str(save_dir / "pinned")) == "resume"
     assert rr._ckpt_scalar(str(save_dir / "pinned"), "total_epochs_done") == 1
     cut["at"], ran[:] = None, []
-    out = chain()
+    out = run()
     assert [stage_of(a) for a in ran] == [
         "pinned", "fit", "test", "test_refine"]
 
@@ -366,6 +384,7 @@ def test_chain_runs_cut_and_resumed_on_the_cpu(tmp_path, monkeypatch,
             f"--save_dir={save_dir / stage['name']}"] + where
 
     side = rr._read_sidecar(str(save_dir))
+    assert side["run"] == chain and out["run"] == chain
     assert {n: [s["kind"] for s in segs]
             for n, segs in side["stages"].items()} == {
         "curriculum_1": ["fresh"], "curriculum_2": ["fresh"],
@@ -379,6 +398,21 @@ def test_chain_runs_cut_and_resumed_on_the_cpu(tmp_path, monkeypatch,
     for name in ("curriculum_1", "curriculum_2", "curriculum_3", "pinned"):
         for f in ("log.txt", "model.ckpt", "outputs.npz"):
             assert (save_dir / name / f).exists(), (name, f)
+    # The velocity head read at each training stage's start and after each
+    # save (the pinned stage's first save was cut before its reading, and
+    # the resumed stage did not read its start again), and its last reading
+    # in the compare line.
+    for name, epochs in (("curriculum_1", [0, 1]), ("curriculum_2", [0, 1]),
+                         ("curriculum_3", [0, 1]), ("pinned", [0, 2])):
+        records = rr._velocity_records(str(save_dir / name))
+        assert [r["epoch"] for r in records] == epochs, name
+        assert out["stages"][name]["velocity"] == records[-1]
+        assert len(records[-1]["velocities"]) == 3
+        assert all(np.isfinite(records[-1][k]) for k in (
+            "spread", "speed_p95", "grad_norm", "vel_grad_norm", "pred",
+            "recons"))
+    assert rr._velocity_records(str(save_dir / "curriculum_1"))[0][
+        "step"] == 37500
     for i in (1, 2, 3):
         ckpt = checkpoint.load_checkpoint(str(save_dir / f"curriculum_{i}"))
         # The trunk's step carried on (the LR schedule's position).
@@ -405,11 +439,11 @@ def test_chain_runs_cut_and_resumed_on_the_cpu(tmp_path, monkeypatch,
 
     # A finished chain runs nothing again, and goes on at no other seed.
     ran[:] = []
-    again = chain()
+    again = run()
     assert ran == [] and again["stages"] == out["stages"]
     with pytest.raises(SystemExit, match="ran at seed 0; refusing to go on "
                                          "at seed 1"):
-        rr.run_chain("3bp_chain", str(save_dir), "cpu", str(data), seed=1,
+        rr.run_chain(chain, str(save_dir), "cpu", str(data), seed=1,
                      stages=stages)
     assert ran == []
 

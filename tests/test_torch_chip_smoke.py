@@ -588,13 +588,16 @@ def test_pipeline_helpers_count_and_parse_the_tools(tmp_path, monkeypatch,
 
 def test_chain_phase_counts_every_stage_on_the_cpu(tmp_path, monkeypatch,
                                                   one_thread):
-    """The chain phase tiny on the CPU (8 train, 4 valid and 4 test
-    sequences of the tracked 3bp files, 4 of the seq-40 file; B=8, 1
-    epoch a curriculum stage, 2 pinned; fit_physics on 1 batch): every
-    stage's decodes, counted as calls of the kernel's wrapper, are what
-    chain_launches says, and each training stage's steps what its epochs
-    make; the chain_epochs it reads; a stage whose count is off fails the
-    phase."""
+    """The chain phase tiny on the CPU (CHAIN, the prediction off through
+    the curriculum; 8
+    train, 4 valid and 4 test sequences of the tracked 3bp files, 4 of the
+    seq-40 file; B=8, 1 epoch a curriculum stage, 2 pinned; fit_physics on
+    1 batch): every stage's decodes, counted as calls of the kernel's
+    wrapper, are what chain_launches says (the runner's readings of the
+    velocity head at each training stage's start and after each save
+    included), and each training stage's steps what its epochs make; each
+    training stage's velocity head read at its end; the chain_epochs it
+    reads; a stage whose count is off fails the phase."""
     import functools
 
     import numpy as np
@@ -625,15 +628,19 @@ def test_chain_phase_counts_every_stage_on_the_cpu(tmp_path, monkeypatch,
     assert chip_smoke.chain_epochs() == {
         "curriculum_1": 1, "curriculum_2": 1, "curriculum_3": 1,
         "pinned": 2}
+    assert chip_smoke.CHAIN == "3bp_chain_recons_warmup"
     stages, out = chip_smoke.chain(batch_size=8, data_dir=str(tmp_path),
                                    device="cpu")
+    assert out["run"] == chip_smoke.CHAIN
     assert {k: v["launches"] for k, v in stages.items()} == {
-        "curriculum_1": 18, "curriculum_2": 18, "curriculum_3": 18,
-        "surgery": 0, "pinned": 24, "fit": 4, "test": 4, "test_refine": 10}
+        "curriculum_1": 22, "curriculum_2": 22, "curriculum_3": 22,
+        "surgery": 0, "pinned": 30, "fit": 4, "test": 4, "test_refine": 10}
     assert all(v["seconds"] > 0 for v in stages.values())
     assert {k: r["steps"] for k, r in out["stages"].items()
             if r["kind"] == "train"} == {
         "curriculum_1": 1, "curriculum_2": 1, "curriculum_3": 1, "pinned": 2}
+    assert {k: r["velocity"]["epoch"] for k, r in out["stages"].items()
+            if r["kind"] == "train"} == chip_smoke.chain_epochs()
     # The same counts at B=100 on the tracked files: what the card's run
     # must launch (20 steps an epoch, 200 valid and test sequences, 150
     # seq-40 ones, fit_physics's 8 batches).
@@ -641,9 +648,10 @@ def test_chain_phase_counts_every_stage_on_the_cpu(tmp_path, monkeypatch,
     from paig_reproduction_tpu_torch.tools import reference_runs as rr
     full = {s["name"]: chip_smoke.chain_launches(
         s, chip_smoke.chain_epochs().get(s["name"], 0), 2000, 200, 200, 150,
-        100) for s in rr.chain_stages((1, 1, 1), 2, eval_every=1)}
-    assert full == {"curriculum_1": 62, "curriculum_2": 62,
-                    "curriculum_3": 62, "surgery": 0, "pinned": 108,
+        100) for s in rr.CHAINS[chip_smoke.CHAIN]["stages"](
+            (1, 1, 1), 2, save_every=1, eval_every=1)}
+    assert full == {"curriculum_1": 66, "curriculum_2": 66,
+                    "curriculum_3": 66, "surgery": 0, "pinned": 114,
                     "fit": 18, "test": 4, "test_refine": 10}
     # A miscount fails the phase (the runner's result read again).
     monkeypatch.setattr(rr, "run_chain", lambda *a, **k: out)
@@ -688,7 +696,7 @@ def test_kernels_line_has_every_phase(capsys):
         graph=dict(param_rel=0.0, bitwise=True, eval_rel=0.0, steps={}),
         pipeline={"discovery": dict(seconds=1.0, launches=2818),
                   "slot_rescue": dict(seconds=1.0, launches=0)},
-        chain={"curriculum_1": dict(seconds=21.5, launches=62),
+        chain={"curriculum_1": dict(seconds=21.5, launches=66),
                "surgery": dict(seconds=0.6, launches=0)})
     line = chip_smoke.kernels_line(130, 5e-6, timings, {"jvp_ms": 1.0}, runs)
     assert "\n" not in line
@@ -700,7 +708,7 @@ def test_kernels_line_has_every_phase(capsys):
     assert kernel["route"] == "cuda" and kernel["launches"] == 130
     assert kernel["pipeline_launches"] == {"discovery": 2818,
                                            "slot_rescue": 0}
-    assert kernel["chain_launches"] == {"curriculum_1": 62, "surgery": 0}
+    assert kernel["chain_launches"] == {"curriculum_1": 66, "surgery": 0}
     assert kernel["native_loader_fused_launches"] == 130
     assert kernel["task_launches"] == {"3bp_color": 72}
     assert kernel["lstm_launches"] == 11430
