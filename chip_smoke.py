@@ -155,20 +155,24 @@ Phases, each printing its elapsed seconds:
                 decodes it made;
 17. chain     - 3bp_color's multi-stage chain through the reference
                 runner (tools/reference_runs.py's CHAIN, 3bp_chain with
-                the prediction off through the curriculum) at cut depth
-                on the tracked files, B=100: the slot curriculum's three
-                stages (CHAIN_CURRICULUM epochs, the first warm-started
-                from the converted spring trunk), the all-slot surgery, the
-                pinned resume (CHAIN_PINNED epochs), ``fit_physics
-                --write`` and both test phases with their logs' flags.
-                Each stage prints
+                the prediction off through the curriculum and gated in
+                the pinned stage) at cut depth on the tracked files,
+                B=100: the slot curriculum's three stages
+                (CHAIN_CURRICULUM epochs, the first warm-started from the
+                converted spring trunk), the all-slot surgery, the pinned
+                resume (CHAIN_PINNED epochs), ``fit_physics --write`` and
+                both test phases with their logs' flags. Each stage prints
                 its wall seconds and its decoder launches, replays and the
                 runner's readings of the velocity head included, which
                 must equal the decodes it made (``chain_launches``), and
                 each training stage the velocity head's state at its end
-                (``reference_runs.velocity_state``); its numbers must be
-                finite and each training stage must take its steps on the
-                graphed step;
+                (``reference_runs.velocity_state``) and the learning rate
+                of its first step, with the optimizer count it was read
+                at: ``curriculum_1`` (from the trunk, whose step is past
+                its schedule's anneal and which brings no optimizer state)
+                and ``pinned`` (from the surgery) must start at
+                ``--base_lr``; its numbers must be finite and each
+                training stage must take its steps on the graphed step;
     Before the kernels line, one line with every phase's wall seconds.
 18. kernels   - one JSON line with every kernel's launches, error, times,
                 share of its bound and store-only floor, at the main
@@ -401,13 +405,18 @@ BACKGROUND_ATOL = 1e-5
 JVP_RTOL = 1e-4
 # The chain phase: 3bp_color's chain (the reference runner's CHAIN) at cut
 # depth, its curriculum stages' epochs and the pinned resume's, a save every
-# epoch.
-CHAIN_CURRICULUM = (1, 1, 1)
+# epoch. curriculum_1's 4 epochs put its schedule's anneal (at 3 epochs)
+# past its first step: at the optimizer's count it starts at --base_lr, at
+# the trunk's step it would start at --base_lr / 5.
+CHAIN_CURRICULUM = (4, 1, 1)
 CHAIN_PINNED = 2
-# The chain the phase drives: the one whose curriculum keeps the velocity
-# head alive (3bp_chain's own stages are held on the CPU by
-# tests/test_torch_chain.py).
-CHAIN = "3bp_chain_recons_warmup"
+# The chain the phase drives: the one whose pinned stage the probes of
+# tools/curriculum_probes.py --stage pinned chose (the other chains' stages
+# are held on the CPU by tests/test_torch_chain.py).
+CHAIN = "3bp_chain_pinned_gated"
+# The training stages that must start at --base_lr: those whose restore
+# brings no optimizer state, so the optimizer's count starts at 0.
+CHAIN_FRESH_COUNT = ("curriculum_1", "pinned")
 # Each phase's wall seconds, in order (``phase``).
 PHASE_SECONDS = {}
 
@@ -2778,6 +2787,17 @@ def chain(batch_size=100, data_dir=DATA_DIR, device="cuda",
         if stage["kind"] == "train":
             print(f"chain stage {name}: "
                   f"{rr.velocity_line(row['velocity'])}", flush=True)
+            lr = row["first_lr"]
+            base_lr = float(rr.flag(stage["argv"], "base_lr"))
+            print(f"chain stage {name}: first step's learning rate "
+                  + ("not logged" if lr is None else
+                     f"{lr[0]:.9g} (optimizer count {lr[1]}, step "
+                     f"{lr[2]}); --base_lr {base_lr:g}"), flush=True)
+            if lr is None or (name in CHAIN_FRESH_COUNT
+                              and (lr[0], lr[1]) != (base_lr, 0)):
+                raise AssertionError(f"chain: {name} did not start at "
+                                     f"--base_lr at optimizer count 0: "
+                                     f"{lr}")
             if row["valid"] is None or row["test_seq40"] is None:
                 raise AssertionError(f"chain: {name} logged no valid eval "
                                      f"or no seq-40 test line")

@@ -114,6 +114,24 @@ def _find_mappings(tree, key):
         yield from _find_mappings(child, key)
 
 
+def _schedule_count(tree):
+    """The count of the first optax ``ScaleByScheduleState`` (a mapping of
+    ``count`` alone) in a tree of mappings and sequences, or None."""
+    if isinstance(tree, Mapping):
+        if set(tree) == {"count"}:
+            return int(np.asarray(tree["count"]))
+        children = tree.values()
+    elif isinstance(tree, (list, tuple)):
+        children = tree
+    else:
+        return None
+    for child in children:
+        count = _schedule_count(child)
+        if count is not None:
+            return count
+    return None
+
+
 def flax_checkpoint_to_port(tree: Mapping) -> dict:
     """The port's checkpoint dict (``train/checkpoint.py``) from the numpy
     tree an orbax restore of a JAX ``model.ckpt`` gives: ``params``,
@@ -128,7 +146,8 @@ def flax_checkpoint_to_port(tree: Mapping) -> dict:
     ``--bg_lr_mult``) each branch holds the state of its own parameters;
     the branches are merged, each parameter from the branch that trains it.
     Momentum's trace is left out, so a restore keeps its initial state and
-    logs it."""
+    logs it. The LR schedule's count (every branch keeps the same one)
+    becomes the optimizer's ``count``."""
     optimizer = {}
     for st in _find_mappings(tree.get("opt_state"), "nu"):
         nus = flax_to_state_dict(st["nu"])
@@ -142,6 +161,9 @@ def flax_checkpoint_to_port(tree: Mapping) -> dict:
                           for name, t in nus.items()})
     out = {"model": flax_to_state_dict(tree["params"]),
            "optimizer": {"state": optimizer}}
+    count = _schedule_count(tree.get("opt_state"))
+    if count is not None:
+        out["optimizer"]["count"] = count
     for key in ("step", "epoch", "total_epochs_done"):
         out[key] = int(np.asarray(tree.get(key, 0)))
     return out

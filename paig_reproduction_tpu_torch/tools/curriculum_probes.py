@@ -37,6 +37,28 @@ writes ``DIR/probes.json``:
 
     python -m paig_reproduction_tpu_torch.tools.curriculum_probes \\
         --save_dir DIR [--probes base a b c d]
+
+``--stage pinned`` probes the pinned stage instead: ``CHAIN_DIR`` first
+runs ``3bp_chain_recons_warmup``'s curriculum (``run_chain``; its finished
+stages are not run again), then each probe copies that run into
+``DIR/<probe>`` and runs the all-slot surgery and the 1000 pinned epochs
+there under the chain's flags plus its own (``PINNED_PROBES``):
+
+* ``control``: none (``3bp_chain_recons_warmup``'s pinned stage);
+* ``e``: ``--recons_warmup --aux_on_recons=3.0``: the prediction term off
+  until a valid eval's recons fall under twice the recons bar;
+* ``f``: ``--vel_anchor=1.0``.
+
+A pinned probe passes where the head is alive at the stage's end (the
+tests above) and its last valid recons are under ``MAX_PINNED_RECONS``;
+``DIR/pinned_probes.json`` also gives the epoch ``e``'s trigger fired at
+(None where it never did). Each probe's directory is a chain's save_dir
+through the pinned stage, which ``reference_runs --run`` of a chain with
+the same stages finishes:
+
+    python -m paig_reproduction_tpu_torch.tools.curriculum_probes \\
+        --stage pinned --chain_dir CHAIN_DIR --save_dir DIR \\
+        [--probes control e f]
 """
 from __future__ import annotations
 
@@ -57,6 +79,13 @@ MIN_SPREAD = 0.1
 MAX_SATURATED = 0.5
 PROBE_EPOCHS = 300
 SHORT_EPOCHS = 100
+# The pinned stage's probes: the flags each adds to the chain's pinned
+# stage, and the valid recons a passing one ends under (the recons bar).
+PINNED_PROBES = {"control": [], "e": list(rr.PINNED_GATE_FLAGS),
+                 "f": ["--vel_anchor=1.0"]}
+MAX_PINNED_RECONS = 1.5
+# The chain whose curriculum the pinned probes start from.
+PINNED_FROM = "3bp_chain_recons_warmup"
 
 
 def probe_flags(name, base_records=()) -> list:
@@ -143,18 +172,115 @@ def run_probes(save_dir, names=("base", "a", "b", "c", "d"), device="cuda",
     return result
 
 
+def pinned_stages(flags, curriculum=rr.CURRICULUM_EPOCHS,
+                  pinned=rr.PINNED_EPOCHS, batch_size=100, save_every=50,
+                  eval_every=10) -> list:
+    """PINNED_FROM's stages through the pinned stage, ``flags`` added to
+    the pinned stage's."""
+    stages = rr.chain_stages(
+        curriculum, pinned, batch_size, save_every, eval_every,
+        curriculum_flags=rr.recons_warmup_flags(curriculum),
+        pinned_flags=flags)
+    return stages[:[s["name"] for s in stages].index("pinned") + 1]
+
+
+def pinned_passed(end, valid) -> dict:
+    """The tests of a pinned probe: a live head (``alive``) and valid
+    recons under MAX_PINNED_RECONS at the stage's end."""
+    return dict(alive(end), recons=valid is not None
+                and valid["recons"] < MAX_PINNED_RECONS)
+
+
+def _copy_run(src, dst, stages):
+    """``src``'s sidecar and ``stages``' directories into ``dst``."""
+    import shutil
+    os.makedirs(dst, exist_ok=True)
+    shutil.copy(os.path.join(src, rr.SIDECAR), dst)
+    for st in stages:
+        if not os.path.exists(os.path.join(dst, st["name"])):
+            shutil.copytree(os.path.join(src, st["name"]),
+                            os.path.join(dst, st["name"]))
+
+
+def run_pinned_probes(save_dir, chain_dir, names=("control", "e", "f"),
+                      device="cuda", data_dir=None, seed=0,
+                      curriculum=rr.CURRICULUM_EPOCHS,
+                      pinned=rr.PINNED_EPOCHS, batch_size=100, save_every=50,
+                      eval_every=10) -> dict:
+    """Runs PINNED_FROM's curriculum in ``chain_dir`` (where not finished),
+    then the pinned probes ``names`` in ``save_dir`` from its last
+    stage's checkpoint; returns {probe: its flags, end record, valid
+    losses at that epoch, trigger epoch, tests and whether it passed}."""
+    kw = dict(curriculum=curriculum, pinned=pinned, batch_size=batch_size,
+              save_every=save_every, eval_every=eval_every)
+    curriculum = pinned_stages([], **kw)[:-2]
+    rr.run_chain(PINNED_FROM, chain_dir, device, data_dir, seed,
+                 stages=curriculum)
+    out = {}
+    for name in [n for n in PINNED_PROBES if n in names]:
+        flags = PINNED_PROBES[name]
+        d = os.path.join(save_dir, name)
+        _copy_run(chain_dir, d, curriculum)
+        rr.run_chain(PINNED_FROM, d, device, data_dir, seed,
+                     stages=pinned_stages(flags, **kw))
+        stage_dir = os.path.join(d, "pinned")
+        end = rr._velocity_records(stage_dir)[-1]
+        parsed = rr.parse_log(os.path.join(stage_dir, "log.txt"))
+        valid = parsed["valid"].get(end["epoch"])
+        tests = pinned_passed(end, valid)
+        out[name] = dict(flags=flags, end=end, valid=valid,
+                         trigger=parsed["trigger"],
+                         first_lr=(parsed["first_lr"] or [None])[0],
+                         tests=tests, passed=all(tests.values()))
+        recons = "none" if valid is None else "%.4f" % valid["recons"]
+        trigger = ("never" if parsed["trigger"] is None
+                   else "at epoch %d" % parsed["trigger"])
+        print(f"curriculum_probes: pinned {name} "
+              f"({' '.join(flags) or 'no flag'} on the chain's): valid "
+              f"recons {recons}, trigger {trigger}; "
+              f"{rr.velocity_line(end)}; "
+              + ", ".join(f"{k} {v}" for k, v in tests.items())
+              + f": {'passed' if out[name]['passed'] else 'failed'}",
+              flush=True)
+    first = next((n for n in ("e", "f") if n in out and out[n]["passed"]),
+                 None)
+    print(f"curriculum_probes: first passing pinned probe {first}",
+          flush=True)
+    result = dict(probes=out, first_passing=first)
+    with open(os.path.join(save_dir, "pinned_probes.json"), "w") as f:
+        json.dump(result, f, indent=1)
+    print(json.dumps({k: {kk: v[kk] for kk in ("flags", "valid", "trigger",
+                                               "tests", "passed")}
+                      for k, v in out.items()}), flush=True)
+    return result
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--save_dir", required=True)
-    p.add_argument("--probes", nargs="+", default=["base", "a", "b", "c",
-                                                   "d"])
+    p.add_argument("--stage", choices=("curriculum", "pinned"),
+                   default="curriculum")
+    p.add_argument("--chain_dir", default="",
+                   help="--stage pinned: the save_dir of the curriculum "
+                        "the probes start from")
+    p.add_argument("--probes", nargs="+", default=None,
+                   help="default: base a b c d; control e f with --stage "
+                        "pinned")
     p.add_argument("--data_dir", default="")
     p.add_argument("--device", default="cuda")
     p.add_argument("--seed", type=int, default=0)
     args = p.parse_args(argv)
     os.makedirs(args.save_dir, exist_ok=True)
-    return run_probes(args.save_dir, args.probes, args.device,
-                      args.data_dir or None, args.seed)
+    if args.stage == "pinned":
+        if not args.chain_dir:
+            p.error("--stage pinned needs --chain_dir")
+        return run_pinned_probes(args.save_dir, args.chain_dir,
+                                 args.probes or list(PINNED_PROBES),
+                                 args.device, args.data_dir or None,
+                                 args.seed)
+    return run_probes(args.save_dir, args.probes or ["base", "a", "b", "c",
+                                                     "d"],
+                      args.device, args.data_dir or None, args.seed)
 
 
 if __name__ == "__main__":

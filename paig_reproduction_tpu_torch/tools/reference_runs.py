@@ -63,6 +63,7 @@ from __future__ import annotations
 import argparse
 import json
 import logging
+import math
 import os
 import re
 import signal
@@ -150,8 +151,11 @@ RUNS = {
 # round-3 table names) as the port's checkpoint (tests/ph7_trunk.py writes
 # it): what the JAX package's restore of runs/ph7 into a 3bp_color run
 # takes, the tensors whose name and shape fit and the step (37500), and none
-# of its optimizer state. The step carries into every curriculum stage, so
-# their LR schedules are past their anneal: they train at base_lr / 5.
+# of its optimizer state. The step carries into every curriculum stage; the
+# LR schedule reads the optimizer's count, which starts at 0 in the first
+# (no optimizer state fits) and carries on through the others, as the JAX
+# package's does: each stage trains at base_lr until 75% of the chain's
+# epochs through it.
 TRUNK = os.path.join(REPO, "data", "checkpoints", "ph7_spring")
 # The 3bp recipe (SURVEY.md:278, the reference README:67) with the test
 # log's --learn_frame_offset.
@@ -183,7 +187,7 @@ def test_flags(log) -> list:
 
 def chain_stages(curriculum=CURRICULUM_EPOCHS, pinned=PINNED_EPOCHS,
                  batch_size=100, save_every=50, eval_every=10,
-                 curriculum_flags=()) -> list:
+                 curriculum_flags=(), pinned_flags=()) -> list:
     """3bp_color's chain, stage by stage: its ``name``, ``kind`` (train,
     surgery, fit or test), ``start`` (the stage whose checkpoint it starts
     from, or a directory) and ``argv`` (the flags of the CLI or the tool
@@ -202,7 +206,8 @@ def chain_stages(curriculum=CURRICULUM_EPOCHS, pinned=PINNED_EPOCHS,
     ``eval_every`` epochs (the CLI's default is every epoch: 0.6 of the
     1.7 s a 3bp epoch takes on the card); the epochs given are multiples
     of it, so each stage's last epoch is evaluated. ``curriculum_flags``
-    are appended to the curriculum stages' flags."""
+    are appended to the curriculum stages' flags, ``pinned_flags`` to the
+    pinned stage's."""
     model = _3BP_RECIPE + [f"--batch_size={batch_size}",
                            f"--save_every_n_epochs={save_every}",
                            f"--eval_every_n_epochs={eval_every}",
@@ -219,7 +224,8 @@ def chain_stages(curriculum=CURRICULUM_EPOCHS, pinned=PINNED_EPOCHS,
         dict(name="surgery", kind="surgery", start=start,
              argv=["--task=3bp_color"] + SURGERY_FLAGS),
         dict(name="pinned", kind="train", start="surgery",
-             argv=model + [f"--epochs={pinned}", "--bg_lr_mult=0"]),
+             argv=model + [f"--epochs={pinned}", "--bg_lr_mult=0"]
+             + list(pinned_flags)),
         dict(name="fit", kind="fit", start="pinned",
              argv=["--task=3bp_color", "--write"])]
     stages += [dict(name=name, kind="test", start="fit",
@@ -252,6 +258,18 @@ def _recons_warmup_stages(curriculum=CURRICULUM_EPOCHS, *args, **kwargs):
                         **kwargs)
 
 
+# The pinned stage's flags of 3bp_chain_pinned_gated: the prediction term
+# off until a valid eval's recons fall under twice the recons bar, then on
+# (the trigger is kept in the checkpoint, so a resume keeps it).
+PINNED_GATE_FLAGS = ["--recons_warmup", "--aux_on_recons=3.0"]
+
+
+def _pinned_gated_stages(curriculum=CURRICULUM_EPOCHS, *args, **kwargs):
+    return chain_stages(curriculum, *args,
+                        curriculum_flags=recons_warmup_flags(curriculum),
+                        pinned_flags=PINNED_GATE_FLAGS, **kwargs)
+
+
 # name -> a chained run: the function that lists its stages (called as
 # chain_stages is: the curriculum's and the pinned stage's epochs, the
 # batch, the saves' and evals' periods), where they were read, and its
@@ -276,6 +294,22 @@ CHAINS = {
                   "first step (tools/curriculum_probes.py chose it from "
                   "four candidates)",
         bars=BALL_BARS),
+    "3bp_chain_pinned_gated": dict(
+        stages=_pinned_gated_stages,
+        argv_from="3bp_chain_recons_warmup's stages with the pinned "
+                  "stage's prediction term held off until its valid recons "
+                  "fall under 3.0 (PINNED_GATE_FLAGS): in "
+                  "3bp_chain_recons_warmup the velocity head is flung "
+                  "within the pinned stage's first 10 epochs, which start "
+                  "at valid recons near 200 after the surgery. "
+                  "tools/curriculum_probes.py --stage pinned probed the "
+                  "control, the gate (e) and --vel_anchor=1.0 (f) from one "
+                  "curriculum_3 checkpoint at seed 0; none passed (valid "
+                  "recons 8.7-10.7 against 1.5, and no live head with "
+                  "them): the gate kept the head's weights and ended at "
+                  "the lower valid recons of the two that failed two of "
+                  "the four tests",
+        bars=BALL_BARS),
 }
 
 KEYS = ("pred", "recons", "extrap")
@@ -285,6 +319,8 @@ _TRIGGER = re.compile(r"aux_on_recons trigger: valid recons (\S+) < \S+ at "
                       r"epoch (\d+)")
 _RESCUE = re.compile(r"auto_rescue: epoch (\d+) valid recons (\S+) ")
 _FIT = re.compile(r"fit_physics: k=(\S+) equil=(\S+) ")
+_FIRST_LR = re.compile(r"first step's learning rate: (\S+) \(optimizer "
+                       r"count (\d+), step (\d+)\)")
 _RESUME = re.compile(r"reference_runs: resuming at loop epoch (\d+)")
 _STAMP = re.compile(r"^(\d{4}-\d\d-\d\d \d\d:\d\d:\d\d)")
 RESUME_LINE = "reference_runs: resuming at loop epoch %d"
@@ -307,14 +343,16 @@ def parse_log(path) -> dict:
     (every ``test - epoch=`` line's (epoch, losses), in order), the flag
     ``header`` (the ``--`` lines after the first line naming the entry
     script) and ``segments`` (1, and 1 more for each resume the runner
-    marked: its loop epochs count on from the checkpoint's), and
-    ``first_logged``: the earliest timestamp of its lines
-    (``YYYY-MM-DD HH:MM:SS``; None without one), which dates the run. A
+    marked: its loop epochs count on from the checkpoint's),
+    ``first_lr``: each segment's first step's learning rate, optimizer
+    count and step (the port's log.txt only), and ``first_logged``: the
+    earliest timestamp of its lines (``YYYY-MM-DD HH:MM:SS``; None
+    without one), which dates the run. A
     timestamped line seen before is skipped: the thinned JAX logs repeat
     their first lines after the flag header."""
     out = dict(test=None, test_epoch=None, tests=[], valid={}, arms=[],
                trigger=None, rescues=[], fits=[], header=[], segments=1,
-               first_logged=None)
+               first_lr=[], first_logged=None)
     offset = 0
     in_header = False
     seen = set()
@@ -367,6 +405,11 @@ def parse_log(path) -> dict:
             m = _FIT.search(line)
             if m:
                 out["fits"].append((float(m.group(1)), float(m.group(2))))
+                continue
+            m = _FIRST_LR.search(line)
+            if m:
+                out["first_lr"].append((float(m.group(1)), int(m.group(2)),
+                                        int(m.group(3))))
     return out
 
 
@@ -733,8 +776,9 @@ _GRAVITY_FIT = re.compile(r"(pointwise|trajectory) gravity fit: "
 
 def _fit(argv, start_dir, stage_dir, data_dir, device):
     """fit_physics with ``argv`` (``--write``) on a copy of ``start_dir``'s
-    checkpoint in ``stage_dir``; its printed fits and the written values go
-    to FIT_JSON."""
+    checkpoint in ``stage_dir``; its printed pointwise fit and the written
+    values go to FIT_JSON: ``A`` is the trajectory fit as written, the exp
+    of the written ``log_g`` (the tool prints it to four decimals)."""
     import shutil
 
     from paig_reproduction_tpu_torch.tools import fit_physics
@@ -747,7 +791,7 @@ def _fit(argv, start_dir, stage_dir, data_dir, device):
     fits = {kind: float(a) for kind, a in _GRAVITY_FIT.findall(printed)}
     with open(os.path.join(stage_dir, FIT_JSON), "w") as f:
         json.dump(dict(A_pointwise=fits["pointwise"],
-                       A=fits["trajectory"],
+                       A=math.exp(float(fitted["log_g"])),
                        log_g=float(fitted["log_g"]),
                        frame_offset=fitted["frame_offset"].tolist()), f)
 
@@ -1056,6 +1100,9 @@ def compare_chain(name, save_dir, stages=None) -> dict:
                 row["test"] = tests[-1][1]
             records = _velocity_records(d)
             row["velocity"] = records[-1] if records else None
+            row["first_lr"] = (parsed["first_lr"][0] if parsed["first_lr"]
+                               else None)
+            row["trigger"] = parsed["trigger"]
         elif stage["kind"] == "test":
             ref = parse_log(os.path.join(REPO, stage["log"]))
             port = parse_log(log) if os.path.exists(log) else {"test": None}
@@ -1092,6 +1139,12 @@ def compare_chain(name, save_dir, stages=None) -> dict:
                     + f" (record: valid {rec['pinned_valid_recons']}, test "
                     f"{rec['pinned_test_pred']} / "
                     f"{rec['pinned_test_recons']})")
+            lr = row.get("first_lr")
+            if lr is not None:
+                part += (f", first step's LR {lr[0]:.6g} (optimizer count "
+                         f"{lr[1]})")
+            if row.get("trigger") is not None:
+                part += f", aux_on_recons trigger at epoch {row['trigger']}"
             parts.append(part + ", " + velocity_line(row.get("velocity")))
         elif row["kind"] == "fit":
             parts.append(

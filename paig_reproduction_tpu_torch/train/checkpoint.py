@@ -5,8 +5,11 @@ package writes an orbax directory; the port writes one ``torch.save`` file
 at ``save_dir/model.ckpt``, a dict of
 
 * ``model``: the model's ``state_dict``;
-* ``optimizer``: ``{"state": {parameter name: {key: tensor}}}``, the
-  optimizer's per-parameter state keyed by name instead of by position;
+* ``optimizer``: ``{"state": {parameter name: {key: tensor}}, "count":
+  int}``, the optimizer's per-parameter state keyed by name instead of by
+  position, and its update count, the LR schedule's position (optax's
+  ``count`` in the JAX package; a checkpoint written before the port kept
+  it lacks it);
 * ``step``, ``epoch`` and ``total_epochs_done``: ints;
 * ``recipe``: the single-command recipes' state (``RECIPE_DEFAULTS``'
   keys), read by ``recipe_state``.
@@ -85,7 +88,12 @@ def restore_checkpoint(restore_dir, model, optimizer=None, piece=None):
     slice this process holds (tensor parallelism). A checkpoint without
     optimizer state (``tools/slot_rescue.py`` writes one) leaves the
     optimizer's state fresh. Returns the checkpoint's ``step``, ``epoch``
-    and ``total_epochs_done`` (0 where it lacks one)."""
+    and ``total_epochs_done`` (0 where it lacks one) and, with
+    ``optimizer``, ``opt_count``: the saved update count where the restore
+    took the state of a trained parameter, 0 where it took none (the
+    state is fresh, as the JAX package's count is where no leaf of its
+    optimizer state fits), None where it took some but the checkpoint has
+    no count."""
     piece = piece or (lambda name, t: t)
     ckpt = load_checkpoint(restore_dir)
     missing, shape_skipped, extra = [], [], []
@@ -105,11 +113,13 @@ def restore_checkpoint(restore_dir, model, optimizer=None, piece=None):
                 t.copy_(src.reshape(t.shape))
     extra += ["model/" + n for n in saved if n not in target]
 
+    scalars = {k: int(ckpt.get(k, 0)) for k in SCALARS}
     if optimizer is not None:
         names = {id(p): n for n, p in model.named_parameters()}
         params = [p for g in optimizer.param_groups for p in g["params"]]
         current = optimizer.state_dict()
         state = dict(current["state"])
+        took = False
         saved_opt = ckpt.get("optimizer", {}).get("state", {})
         for i, p in enumerate(params):
             name = names[id(p)]
@@ -127,12 +137,16 @@ def restore_checkpoint(restore_dir, model, optimizer=None, piece=None):
                 missing += [f"optimizer/{name}/{k}" for k in cur
                             if k not in src]
                 state[i] = {**cur, **src}
+                took = True
         trained = {names[id(p)] for p in params}
         extra += [f"optimizer/{n}/{k}" for n, st in saved_opt.items()
                   if n not in trained for k in st]
         # load_state_dict moves each tensor to its parameter's device.
         optimizer.load_state_dict({"state": state,
                                    "param_groups": current["param_groups"]})
+        count = ckpt.get("optimizer", {}).get("count")
+        scalars["opt_count"] = (0 if not took else
+                                None if count is None else int(count))
 
     missing += [k for k in SCALARS if k not in ckpt]
     if missing:
@@ -148,7 +162,7 @@ def restore_checkpoint(restore_dir, model, optimizer=None, piece=None):
     if extra:
         logger.info("checkpoint restore: ignoring %d extra leaves: %s",
                     len(extra), sorted(extra)[:5])
-    return {k: int(ckpt.get(k, 0)) for k in SCALARS}
+    return scalars
 
 
 def recipe_state(restore_dir) -> dict:

@@ -158,7 +158,10 @@ class Trainer(RecipeMixin):
         self.step = 0
         self.optimizer = None
         self._lr_at = None
-        # Step at which the optimizer (and its LR schedule) started.
+        # The train step at which the optimizer's update count was 0. The
+        # LR schedule reads that count (``opt_count``), as the JAX
+        # package's reads optax's: a fresh optimizer state starts it at 0,
+        # a restore of the optimizer state brings it.
         self._opt_step0 = 0
         self._splits_u8: Dict[str, torch.Tensor] = {}
         # Epoch of train_model's loop, and the epochs of the checkpoint
@@ -253,7 +256,9 @@ class Trainer(RecipeMixin):
         """The JAX package's save_dir semantics: a fresh run WIPES an
         existing save_dir; ``use_ckpt`` restores from ``ckpt_dir``, or from
         ``save_dir`` when ``ckpt_dir`` is empty and save_dir exists. The
-        restored step sets the LR schedule's position."""
+        restored optimizer count sets the LR schedule's position: the
+        saved one, or 0 where the checkpoint brings no optimizer state for
+        the trained parameters (the step is restored all the same)."""
         self.save_dir = save_dir
         restore, restore_dir = False, save_dir
         existed = os.path.exists(save_dir)
@@ -286,6 +291,14 @@ class Trainer(RecipeMixin):
                                    scalars["epoch"])
             self._restore_recipe(recipe_state(restore_dir),
                                  ep_saved=scalars["epoch"])
+            count = scalars.get("opt_count")
+            if count is None:
+                # Optimizer state saved without its count (a checkpoint
+                # written before the count was kept): counted from the
+                # last surgery's step, where one restarted it, else from
+                # step 0.
+                count = self.step - max(self._rescue_step, 0)
+            self._opt_step0 = self.step - count
 
     def _restore_recipe(self, state, ep_saved):
         """The recipe state of a checkpoint, as the JAX trainer restores
@@ -304,9 +317,6 @@ class Trainer(RecipeMixin):
             rc = state["rescue_count"]
             self._rescue_count = rc if rc >= 0 else 1
             self._rescue_step = state["rescue_step"]
-            # The optimizer state restored is the one the surgery
-            # restarted, and so is its schedule.
-            self._opt_step0 = self._rescue_step
             resc_ep = state["rescue_epoch"]
             self._last_rescue_ep = (resc_ep - ep_saved if resc_ep > -(10 ** 8)
                                     else 0)
@@ -350,6 +360,7 @@ class Trainer(RecipeMixin):
         model = {k: self._whole(k, v)
                  for k, v in self.model.state_dict().items()}
         optimizer = optimizer_state_by_name(self.model, self.optimizer)
+        optimizer["count"] = self.opt_count
         optimizer["state"] = {
             n: {k: self._whole(n, v) if v.dim() else v for k, v in st.items()}
             for n, st in optimizer["state"].items()}
@@ -455,6 +466,11 @@ class Trainer(RecipeMixin):
                     "recons_out", "enc_pos", "pos_vel_seq")},
                 "train_loss": loss, **eval_losses})
         return loss, eval_losses
+
+    @property
+    def opt_count(self) -> int:
+        """The optimizer's update count: the LR schedule's position."""
+        return self.step - self._opt_step0
 
     def _fill_scalars(self, step):
         """The learning rate and aux scale of step ``step`` into the
@@ -739,6 +755,10 @@ class Trainer(RecipeMixin):
             self._recons_history.append(
                 (0, float(valid["eval_recons_loss"])))
 
+        if epochs > 0:
+            logger.info("first step's learning rate: %.9g (optimizer "
+                        "count %d, step %d)", self._lr_at(self.opt_count),
+                        self.opt_count, self.step)
         fused = epochs > 0 and self._fused_train(batch_size)
         # The C++ loader feeds the step only where the chunks do not, as in
         # the JAX trainer.

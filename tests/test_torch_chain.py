@@ -12,8 +12,8 @@
   every value bit for bit; no optimizer state taken by either (the paths
   differ: a 3bp_color run's optimizer is a ``multi_transform``, its
   ``log_m`` frozen); the step, 37500, taken by both, and the LR both
-  schedules give there. A trunk of the model alone, without the step,
-  fails this;
+  schedules give at the optimizer count the restore leaves, 0. A trunk
+  of the model alone, without the step, fails this;
 * ``fit_physics`` on a gravity cell: on the JAX package's 3bp_color
   checkpoint at seed 0 (``tests/jax_3bp.py``), the encoder positions and
   the rendered-appearance offsets within 1e-5 px of the JAX tool's on 16
@@ -129,8 +129,11 @@ def test_spring_trunk_restores_into_3bp_as_in_jax(tmp_path,
     assert set(port_sd) == set(jax_sd) == set(jax_init_sd)
     assert not trainer.optimizer.state
     assert trainer.step == int(restored["step"]) == 37500
-    assert trainer._lr_at(trainer.step) == pytest.approx(
-        float(schedule(restored["step"]))) == args.base_lr / 5
+    counts = {int(v) for p, v in jax.tree_util.tree_leaves_with_path(
+        restored["opt_state"]) if jax.tree_util.keystr(p).endswith(".count")}
+    assert counts == {trainer.opt_count} == {0}
+    assert trainer._lr_at(trainer.opt_count) == pytest.approx(
+        float(schedule(0))) == args.base_lr
 
     def taken(got, start):
         return {n for n in got if not torch.equal(
@@ -252,10 +255,17 @@ def test_chain_stages_are_the_records(chain):
     epoch) and the curriculum's 900, so the prediction term stays off to
     the curriculum's last step; nothing else differs, and its pinned stage
     (whose step the surgery restarts at 0) trains the prediction from its
-    first step."""
+    first step. 3bp_chain_pinned_gated's curriculum is
+    3bp_chain_recons_warmup's, and its pinned stage adds --recons_warmup
+    --aux_on_recons=3.0: the prediction off until a valid eval's recons
+    fall under 3.0."""
     stages = rr.CHAINS[chain]["stages"]()
-    warm = chain == "3bp_chain_recons_warmup"
+    warm = chain != "3bp_chain"
+    gated = chain == "3bp_chain_pinned_gated"
     extra = ["--recons_warmup", "--aux_warmup_epochs=2775"] if warm else []
+    pinned_extra = (["--recons_warmup", "--aux_on_recons=3.0"] if gated
+                    else [])
+    assert rr.PINNED_GATE_FLAGS == ["--recons_warmup", "--aux_on_recons=3.0"]
     assert [s["name"] for s in stages] == [
         "curriculum_1", "curriculum_2", "curriculum_3", "surgery", "pinned",
         "fit", "test", "test_refine"]
@@ -281,9 +291,11 @@ def test_chain_stages_are_the_records(chain):
     pinned = parser.parse_args(stages[4]["argv"])
     assert (pinned.epochs, pinned.bg_lr_mult, pinned.active_slots,
             pinned.eval_every_n_epochs, pinned.recons_warmup,
-            pinned.aux_warmup_epochs) == (1000, 0.0, 0, 10, False, 0)
-    assert [s["argv"] for s in stages[3:]] == [
-        s["argv"] for s in rr.chain_stages()[3:]]
+            pinned.aux_warmup_epochs, pinned.aux_on_recons) == (
+        1000, 0.0, 0, 10, gated, 0, 3.0 if gated else 0.0)
+    assert stages[4]["argv"] == rr.chain_stages()[4]["argv"] + pinned_extra
+    assert [s["argv"] for s in stages[3:] if s["name"] != "pinned"] == [
+        s["argv"] for s in rr.chain_stages()[3:] if s["name"] != "pinned"]
     assert stages[3]["argv"] == ["--task=3bp_color", "--rescue_slot=all",
                                  "--disk_radius=3", "--set_background=median"]
     for stage in stages[6:]:

@@ -18,17 +18,20 @@ velocity head, held to the JAX package on the CPU:
   losses at each step within ``STEP_LOSS_RTOL``, the velocity head's
   gradient at each step zero in both, and every parameter after within
   ``STEP_RTOL`` of the largest, the head's unmoved (the chain's float32
-  parity tests hold positions to 1e-5 px and fits to 1e-3). The JAX
-  package's optimizer (its RMSprop, ``log_m`` frozen) takes the learning
-  rate the port's step applies: 2e-4 as the port's float32 device scalar
-  holds it, 2e-4 * (1 - 2.5e-8). At the JAX schedule's own float64 2e-4
-  the parameters part by 6e-5 of a tensor's largest after two steps,
-  RMSprop's first steps amplifying the rounding as
-  ``test_torch_recipe_drift.py`` shows; at the same rate they agree to
-  6e-9. Where the two packages' schedules part after this restore
-  (ROADMAP Queue 3) is ``test_trunk_restore_learning_rates``;
-* the probes' flags and their test of a live head
-  (``tools/curriculum_probes.py``).
+  parity tests hold positions to 1e-5 px and fits to 1e-3). Each
+  package steps at its own schedule: the JAX package's optimizer (its
+  RMSprop, ``log_m`` frozen, its state as the restore left it) at its
+  schedule of its own count, the port's at its own of its optimizer's
+  count, both 1e-3 after this restore. The JAX schedule's rate is taken
+  in float32, as the JAX package computes it and as the port's device
+  scalar holds it: under x64 it would be float64, and RMSprop's first
+  steps amplify a rounding of 5e-8 to parameters that part by 6e-5 of a
+  tensor's largest after two steps (``test_torch_recipe_drift.py``);
+* the first step after each restore of the chain, through both packages'
+  restores (``test_trunk_restore_learning_rates``): the port's LR is the
+  JAX schedule's at its optimizer's restored count;
+* the probes' flags and their tests of a live head, the pinned probes'
+  too (``tools/curriculum_probes.py``).
 """
 import os
 
@@ -190,11 +193,10 @@ def test_curriculum_steps_match_jax(tmp_path):
     _tiny_train(path)
     args = cli.build_parser().parse_args(_stage_argv() + ["--device=cpu"])
     trainer = _port_trainer(args, path, tmp_path / "run")
-    model, _, restored = _jax_start(args)
+    model, schedule, restored = _jax_start(args)
     assert trainer.step == int(restored["step"]) == 37500
-    lr = float(np.float32(trainer._lr_at(trainer.step
-                                         - trainer._opt_step0)))
-    assert lr == pytest.approx(args.base_lr / 5, rel=1e-7)
+    assert trainer.opt_count == 0
+    assert trainer._lr_at(trainer.opt_count) == args.base_lr
     # The JAX trainer's aux scale: 0 before --aux_warmup_epochs' steps.
     warmup = args.aux_warmup_epochs * STEPS_PER_EPOCH
     assert warmup == trainer.aux_warmup_steps == 37500 + 300 * 3 * 20
@@ -209,9 +211,13 @@ def test_curriculum_steps_match_jax(tmp_path):
         for name, t in flax_to_state_dict(jax.device_get(params)).items():
             assert torch.equal(port_start[name].reshape(-1),
                                t.reshape(-1).double()), name
-        tx = jax_opt.build_optimizer(args.optimizer,
-                                     optax.constant_schedule(lr), params)
-        opt_state = tx.init(params)
+        tx = jax_opt.build_optimizer(
+            args.optimizer, lambda count: schedule(count).astype(
+                jnp.float32), params)
+        opt_state = jax.tree.map(
+            lambda a: jnp.asarray(a, jnp.float64)
+            if np.issubdtype(np.asarray(a).dtype, np.floating)
+            else jnp.asarray(a), restored["opt_state"])
 
         @jax.jit
         def step(p, o, batch, scale):
@@ -225,10 +231,16 @@ def test_curriculum_steps_match_jax(tmp_path):
         rs = np.random.RandomState(0)
         for _ in range(STEPS):
             idx = rs.choice(8, BATCH, replace=False)
+            trainer._fill_scalars(trainer.step)
+            count = [int(v) for p, v in
+                     jax.tree_util.tree_leaves_with_path(opt_state)
+                     if jax.tree_util.keystr(p).endswith(".count")]
+            assert set(count) == {trainer.opt_count}
+            assert float(trainer._scalars[0]) == float(
+                schedule(count[0]).astype(jnp.float32)) == np.float32(1e-3)
             params, opt_state, total, ev, g = step(
                 params, opt_state, jnp.asarray(x[idx]),
                 float(trainer.step >= warmup))
-            trainer._fill_scalars(trainer.step)
             losses = trainer._step(torch.from_numpy(x[idx]))
             trainer.step += 1
             ours = dict(zip(("eval_pred_loss", "eval_extrap_loss",
@@ -260,24 +272,207 @@ def test_curriculum_steps_match_jax(tmp_path):
                             for n in head)
 
 
-def test_trunk_restore_learning_rates(tmp_path):
-    """Where the packages' schedules part after the trunk's restore: the
-    JAX package's LR follows its optimizer's count, which the restore of
-    runs/ph7 leaves at 0 (no optimizer leaf fits a 3bp_color state), so its
-    first curriculum step takes base_lr; the port's follows the train step,
-    37500, past the anneal: base_lr / 5 (ROADMAP Queue 3)."""
-    path = tmp_path / "3bp.npz"
-    _tiny_train(path)
-    args = cli.build_parser().parse_args(_stage_argv() + ["--device=cpu"])
-    trainer = _port_trainer(args, path, tmp_path / "run")
-    _, schedule, restored = _jax_start(args)
-    counts = [np.asarray(v) for p, v in
-              jax.tree_util.tree_leaves_with_path(restored["opt_state"])
-              if jax.tree_util.keystr(p).endswith(".count")]
-    assert counts and all(c == 0 for c in counts)
-    assert float(schedule(counts[0])) == pytest.approx(args.base_lr)
-    assert trainer._lr_at(trainer.step - trainer._opt_step0) == (
-        pytest.approx(args.base_lr / 5))
+# The chain whose restores test_trunk_restore_learning_rates holds, at a
+# tiny depth: 2 epochs a curriculum stage and 2 pinned, B=4 on 8 train
+# sequences (2 steps an epoch, so each stage's schedule anneals inside
+# it); curriculum_1 is cut after its first epoch's save and resumed.
+LR_DEPTH = dict(curriculum=(2, 2, 2), pinned=2, batch_size=4)
+# The restore points, each named by the checkpoint restored: the trunk
+# into curriculum_1; curriculum_1 at its cut, resumed; curriculum_1 into
+# curriculum_2; curriculum_2 into curriculum_3; the surgery into pinned;
+# slot_rescue --keep_step's checkpoint into pinned; pinned's, its count
+# removed, into pinned.
+LR_CASES = ("trunk", "resume", "curriculum_2", "curriculum_3", "pinned",
+            "keep_step", "before_count")
+
+
+def _jax_trainer(argv, spe, save_dir, ckpt_dir):
+    """The JAX package's Trainer of the port's CLI flags ``argv``, built as
+    its CLI builds it at ``spe`` steps an epoch and restored from
+    ``ckpt_dir`` by its initialize_graph (no step is compiled: the
+    parameters are zeros of the init's shapes), and its LR schedule."""
+    from paig_reproduction_tpu.train.trainer import Trainer as JaxTrainer
+    model, _ = jax_3bp.jax_model(argv + ["--device=cpu"])
+    args = cli.build_parser().parse_args(argv + ["--device=cpu"])
+    x = jnp.zeros((1, model.seq_len, 3, 36, 36))
+    shapes = jax.eval_shape(model.init, jax.random.PRNGKey(0), x)
+    trainer = JaxTrainer(model)
+    trainer.params = jax.tree.map(lambda a: np.zeros(a.shape, a.dtype),
+                                  shapes["params"])
+    trainer.build_optimizer(args.base_lr, args.optimizer, args.anneal_lr,
+                            epochs=args.epochs, steps_per_epoch=spe,
+                            aux_warmup_epochs=args.aux_warmup_epochs,
+                            bg_lr_mult=args.bg_lr_mult)
+    trainer.initialize_graph(str(save_dir), True, str(ckpt_dir))
+    return trainer, jax_opt.lr_schedule(args.base_lr, args.epochs, spe,
+                                        args.anneal_lr)
+
+
+def _jax_count(trainer):
+    counts = {int(np.asarray(v)) for p, v in
+              jax.tree_util.tree_leaves_with_path(trainer.opt_state)
+              if jax.tree_util.keystr(p).endswith(".count")}
+    assert len(counts) == 1, counts
+    return counts.pop()
+
+
+def _jax_save(trainer, steps, epochs, save_dir):
+    """The JAX trainer's checkpoint after ``steps`` more updates (optax's
+    count goes up by one an update) and ``epochs`` of its loop."""
+    trainer.opt_state = jax.tree_util.tree_map_with_path(
+        lambda p, v: v + steps if jax.tree_util.keystr(p).endswith(".count")
+        else v, trainer.opt_state)
+    trainer.step += steps
+    trainer._cur_epoch = epochs
+    trainer.save_dir = str(save_dir)
+    trainer.save()
+
+
+def _port_first_lr(argv, data, save_dir, ckpt_dir):
+    """(first step's LR, optimizer count, step) of the port's Trainer of
+    ``argv``, built as cli.main builds it and restored from ``ckpt_dir``."""
+    args = cli.build_parser().parse_args(argv + ["--device=cpu"])
+    its = iterators.get_iterators(
+        os.path.join(data, cli.TASK_TABLE["3bp_color"][0]), conv=True)
+    trainer = Trainer(cli.build_model(args, 20), device="cpu", seed=0)
+    trainer.get_data(its)
+    trainer.build_optimizer(
+        args.base_lr, args.optimizer, args.anneal_lr, epochs=args.epochs,
+        steps_per_epoch=its[0].num_examples // args.batch_size,
+        aux_warmup_epochs=args.aux_warmup_epochs, bg_lr_mult=args.bg_lr_mult)
+    trainer.initialize_graph(str(save_dir), True, str(ckpt_dir))
+    return trainer._lr_at(trainer.opt_count), trainer.opt_count, trainer.step
+
+
+@pytest.fixture(scope="module")
+def lr_chain(tmp_path_factory):
+    """The port's chain (CHAIN) at LR_DEPTH through its pinned stage, run
+    by the reference runner on a cut of the tracked files, and the JAX
+    package's checkpoints at the same points. Returns {case: (the port's
+    first step's LR, count and step after that restore, the JAX trainer's
+    schedule, count and step)}."""
+    from test_torch_chain import _tiny_3bp
+    from test_torch_tools_fit import _jax_tool
+
+    from paig_reproduction_tpu_torch.tools import slot_rescue
+    from paig_reproduction_tpu_torch.train import checkpoint
+
+    root = tmp_path_factory.mktemp("lr_chain")
+    data = root / "data"
+    _tiny_3bp(data)
+    stages = rr.CHAINS[CHAIN]["stages"](
+        LR_DEPTH["curriculum"], LR_DEPTH["pinned"],
+        LR_DEPTH["batch_size"], save_every=1, eval_every=1)[:5]
+    argv = {s["name"]: s["argv"] for s in stages}
+    spe = 8 // LR_DEPTH["batch_size"]
+    port = root / "port"
+    save = Trainer.save
+    cut = {}
+
+    def save_then_stop(self):
+        save(self)
+        if self.save_dir.endswith("curriculum_1") and not cut:
+            cut["ckpt"] = checkpoint.load_checkpoint(self.save_dir)
+            raise rr._Terminated()
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("PAIG_VIZ_EXAMPLES", "1")
+        mp.setattr(Trainer, "save", save_then_stop)
+        with pytest.raises(SystemExit):
+            rr.run_chain(CHAIN, str(port), "cpu", str(data), stages=stages)
+        rr.run_chain(CHAIN, str(port), "cpu", str(data), stages=stages)
+    logged = {name: rr.parse_log(str(port / name / "log.txt"))["first_lr"]
+              for name in argv if name != "surgery"}
+    assert [len(v) for v in logged.values()] == [2, 1, 1, 1]
+    ours = {"trunk": logged["curriculum_1"][0],
+            "resume": logged["curriculum_1"][1],
+            "curriculum_2": logged["curriculum_2"][0],
+            "curriculum_3": logged["curriculum_3"][0],
+            "pinned": logged["pinned"][0]}
+    keep_step = ["--task=3bp_color", "--rescue_slot=all",
+                 "--disk_radius=3", "--keep_step"]
+    slot_rescue.main([f"--ckpt_dir={port / 'curriculum_3'}",
+                      f"--out_dir={root / 'port_keep'}", *keep_step])
+    ours["keep_step"] = _port_first_lr(argv["pinned"], data, root / "p_k",
+                                       root / "port_keep")
+    old = checkpoint.load_checkpoint(str(port / "pinned"))
+    assert old["optimizer"].pop("count") == old["step"]
+    os.makedirs(root / "port_old")
+    checkpoint.save_checkpoint(str(root / "port_old"), old)
+    ours["before_count"] = _port_first_lr(argv["pinned"], data, root / "p_o",
+                                          root / "port_old")
+
+    jax_dir = root / "jax"
+    theirs = {}
+
+    def restore(case, stage, ckpt_dir):
+        trainer, schedule = _jax_trainer(argv[stage], spe,
+                                         jax_dir / f"run_{case}", ckpt_dir)
+        theirs[case] = (schedule, _jax_count(trainer), trainer.step)
+        return trainer
+
+    cut_steps = cut["ckpt"]["step"] - 37500
+    t = restore("trunk", "curriculum_1", os.path.join(REPO, "runs", "ph7"))
+    _jax_save(t, cut_steps, 1, jax_dir / "c1_cut")
+    t = restore("resume", "curriculum_1", jax_dir / "c1_cut")
+    side = rr._read_sidecar(str(port))["steps"]
+    _jax_save(t, side["curriculum_1"] - cut_steps, 1, jax_dir / "c1")
+    for i in (2, 3):
+        t = restore(f"curriculum_{i}", f"curriculum_{i}",
+                    jax_dir / f"c{i - 1}")
+        _jax_save(t, side[f"curriculum_{i}"], 2, jax_dir / f"c{i}")
+    tool = _jax_tool("slot_rescue")
+    tool.main([f"--ckpt_dir={jax_dir / 'c3'}",
+               f"--out_dir={jax_dir / 'surgery'}", "--task=3bp_color"]
+              + rr.SURGERY_FLAGS[:2] + ["--set_background=median",
+                                        f"--data_dir={data}"])
+    t = restore("pinned", "pinned", jax_dir / "surgery")
+    _jax_save(t, side["pinned"], 2, jax_dir / "pinned")
+    restore("before_count", "pinned", jax_dir / "pinned")
+    tool.main([f"--ckpt_dir={jax_dir / 'c3'}",
+               f"--out_dir={jax_dir / 'keep'}", *keep_step])
+    restore("keep_step", "pinned", jax_dir / "keep")
+    # A checkpoint of the chain's curriculum written before the port saved
+    # its count keeps the rule of then: counted from step 0, the trunk's
+    # step included.
+    old = checkpoint.load_checkpoint(str(port / "curriculum_1"))
+    old["optimizer"].pop("count")
+    os.makedirs(root / "port_old_c1")
+    checkpoint.save_checkpoint(str(root / "port_old_c1"), old)
+    old_c1 = _port_first_lr(argv["curriculum_2"], data, root / "p_c",
+                            root / "port_old_c1")
+    return dict(cases={case: (ours[case], theirs[case])
+                       for case in LR_CASES}, old_curriculum=old_c1)
+
+
+@pytest.mark.parametrize("case", LR_CASES)
+def test_trunk_restore_learning_rates(lr_chain, case):
+    """The first step after each restore of the chain (LR_CASES) takes the
+    LR of the JAX package's schedule at its optimizer's restored count,
+    and both packages restore the same step. The JAX package's count is
+    optax's: 0 where no leaf of the checkpoint's optimizer state fits (the
+    spring trunk, whose optimizer is not a 3bp_color run's
+    ``multi_transform``; a surgery's checkpoint, with or without its
+    step), the saved one where they fit. The port saves its count with
+    its optimizer state; a checkpoint written before it did
+    (``before_count``) is counted from step 0, or from its last surgery:
+    the same here, where the stage started at step 0."""
+    (lr, count, step), (schedule, jax_count, jax_step) = lr_chain["cases"][
+        case]
+    assert (count, step) == (jax_count, jax_step)
+    assert lr == pytest.approx(float(schedule(jax_count)), rel=1e-7)
+    base = 1e-3
+    if case == "trunk":
+        # The trunk's step is past every stage's anneal; the count is not.
+        assert (count, step) == (0, 37500) and lr == base
+        assert float(schedule(step)) == pytest.approx(base / 5)
+    elif case == "keep_step":
+        assert count == 0 and step > 37500 and lr == base
+    elif case in ("curriculum_2", "pinned"):
+        assert lr == base
+    elif case == "before_count":
+        lr, count, step = lr_chain["old_curriculum"]
+        assert count == step > 37500 and lr == base / 5
 
 
 def test_probe_flags_and_tests():
@@ -312,3 +507,41 @@ def test_probe_flags_and_tests():
     flung = dict(spread=0.001, speed_p95=96.0, saturated=[0.99, 0.98])
     assert cp.alive(flung) == dict(differ=False, in_range=False,
                                    unsaturated=False)
+
+
+def test_pinned_probe_flags_and_tests():
+    """The pinned probes' flags parse with the CLI and differ from
+    CHAIN's pinned stage by their candidate only; their stages are
+    CHAIN's through the pinned stage; (e)'s are the gated chain's pinned
+    flags; a pinned probe passes with a live head and valid recons under
+    the recons bar."""
+    assert cp.PINNED_PROBES == {
+        "control": [], "e": ["--recons_warmup", "--aux_on_recons=3.0"],
+        "f": ["--vel_anchor=1.0"]}
+    assert cp.PINNED_FROM == CHAIN
+    parser = cli.build_parser()
+    chain = rr.CHAINS[CHAIN]["stages"]()
+    for name, flags in cp.PINNED_PROBES.items():
+        stages = cp.pinned_stages(flags)
+        assert [s["name"] for s in stages] == [
+            "curriculum_1", "curriculum_2", "curriculum_3", "surgery",
+            "pinned"]
+        assert stages[:4] == chain[:4]
+        assert stages[4]["argv"] == chain[4]["argv"] + flags
+        args = parser.parse_args(stages[4]["argv"])
+        assert (args.epochs, args.bg_lr_mult, args.recons_warmup,
+                args.aux_on_recons, args.vel_anchor) == (
+            1000, 0.0, name == "e", 3.0 if name == "e" else 0.0,
+            1.0 if name == "f" else 0.0)
+    gated = rr.CHAINS["3bp_chain_pinned_gated"]["stages"]()
+    assert gated[:5] == cp.pinned_stages(cp.PINNED_PROBES["e"])
+    assert gated[5:] == chain[5:]
+    assert cp.pinned_stages([], (1, 1, 1), 2, 8, 1, 1) == rr.CHAINS[CHAIN][
+        "stages"]((1, 1, 1), 2, 8, 1, 1)[:5]
+    live = dict(spread=2.0, speed_p95=4.4, saturated=[0.68, 0.32])
+    assert cp.pinned_passed(live, {"recons": 1.2}) == dict(
+        differ=True, in_range=True, unsaturated=True, recons=True)
+    assert cp.pinned_passed(live, {"recons": 1.5})["recons"] is False
+    assert cp.pinned_passed(live, None)["recons"] is False
+    flung = dict(spread=0.001, speed_p95=96.0, saturated=[0.99, 0.98])
+    assert not any(cp.pinned_passed(flung, {"recons": 13.0}).values())

@@ -589,15 +589,19 @@ def test_pipeline_helpers_count_and_parse_the_tools(tmp_path, monkeypatch,
 def test_chain_phase_counts_every_stage_on_the_cpu(tmp_path, monkeypatch,
                                                   one_thread):
     """The chain phase tiny on the CPU (CHAIN, the prediction off through
-    the curriculum; 8
+    the curriculum and gated in the pinned stage; 8
     train, 4 valid and 4 test sequences of the tracked 3bp files, 4 of the
-    seq-40 file; B=8, 1 epoch a curriculum stage, 2 pinned; fit_physics on
-    1 batch): every stage's decodes, counted as calls of the kernel's
-    wrapper, are what chain_launches says (the runner's readings of the
-    velocity head at each training stage's start and after each save
-    included), and each training stage's steps what its epochs make; each
-    training stage's velocity head read at its end; the chain_epochs it
-    reads; a stage whose count is off fails the phase."""
+    seq-40 file; B=8, 4 epochs in curriculum_1, 1 in each other curriculum
+    stage, 2 pinned; fit_physics on 1 batch): every stage's decodes,
+    counted as calls of the kernel's wrapper, are what chain_launches says
+    (the runner's readings of the velocity head at each training stage's
+    start and after each save included), and each training stage's steps
+    what its epochs make; each training stage's velocity head read at its
+    end; the first step of curriculum_1 and of pinned at --base_lr, at
+    optimizer count 0, and the later curriculum stages' at the count the
+    stage before left; the chain_epochs it reads; a stage whose count is
+    off, or whose first step is not at --base_lr where it must be, fails
+    the phase."""
     import functools
 
     import numpy as np
@@ -626,21 +630,28 @@ def test_chain_phase_counts_every_stage_on_the_cpu(tmp_path, monkeypatch,
     monkeypatch.setattr(chip_smoke, "tool_launches",
                         lambda n, f=1: tool_launches(1, f))
     assert chip_smoke.chain_epochs() == {
-        "curriculum_1": 1, "curriculum_2": 1, "curriculum_3": 1,
+        "curriculum_1": 4, "curriculum_2": 1, "curriculum_3": 1,
         "pinned": 2}
-    assert chip_smoke.CHAIN == "3bp_chain_recons_warmup"
+    assert chip_smoke.CHAIN == "3bp_chain_pinned_gated"
     stages, out = chip_smoke.chain(batch_size=8, data_dir=str(tmp_path),
                                    device="cpu")
     assert out["run"] == chip_smoke.CHAIN
     assert {k: v["launches"] for k, v in stages.items()} == {
-        "curriculum_1": 22, "curriculum_2": 22, "curriculum_3": 22,
+        "curriculum_1": 46, "curriculum_2": 22, "curriculum_3": 22,
         "surgery": 0, "pinned": 30, "fit": 4, "test": 4, "test_refine": 10}
     assert all(v["seconds"] > 0 for v in stages.values())
     assert {k: r["steps"] for k, r in out["stages"].items()
             if r["kind"] == "train"} == {
-        "curriculum_1": 1, "curriculum_2": 1, "curriculum_3": 1, "pinned": 2}
+        "curriculum_1": 4, "curriculum_2": 1, "curriculum_3": 1, "pinned": 2}
     assert {k: r["velocity"]["epoch"] for k, r in out["stages"].items()
             if r["kind"] == "train"} == chip_smoke.chain_epochs()
+    # (LR, optimizer count, step) of each training stage's first step: the
+    # schedules over the chain's 4, 5 and 6 epochs through each curriculum
+    # stage (anneals at 3 and 4 epochs), and pinned's over its 2 (at 1).
+    assert {k: r["first_lr"] for k, r in out["stages"].items()
+            if r["kind"] == "train"} == {
+        "curriculum_1": (1e-3, 0, 37500), "curriculum_2": (2e-4, 4, 37504),
+        "curriculum_3": (2e-4, 5, 37505), "pinned": (1e-3, 0, 0)}
     # The same counts at B=100 on the tracked files: what the card's run
     # must launch (20 steps an epoch, 200 valid and test sequences, 150
     # seq-40 ones, fit_physics's 8 batches).
@@ -649,8 +660,9 @@ def test_chain_phase_counts_every_stage_on_the_cpu(tmp_path, monkeypatch,
     full = {s["name"]: chip_smoke.chain_launches(
         s, chip_smoke.chain_epochs().get(s["name"], 0), 2000, 200, 200, 150,
         100) for s in rr.CHAINS[chip_smoke.CHAIN]["stages"](
-            (1, 1, 1), 2, save_every=1, eval_every=1)}
-    assert full == {"curriculum_1": 66, "curriculum_2": 66,
+            chip_smoke.CHAIN_CURRICULUM, chip_smoke.CHAIN_PINNED,
+            save_every=1, eval_every=1)}
+    assert full == {"curriculum_1": 210, "curriculum_2": 66,
                     "curriculum_3": 66, "surgery": 0, "pinned": 114,
                     "fit": 18, "test": 4, "test_refine": 10}
     # A miscount fails the phase (the runner's result read again).
@@ -658,6 +670,14 @@ def test_chain_phase_counts_every_stage_on_the_cpu(tmp_path, monkeypatch,
     monkeypatch.setattr(chip_smoke, "tool_launches",
                         lambda n, f=1: tool_launches(1, f) + 1)
     with pytest.raises(AssertionError, match="fit did not decode"):
+        chip_smoke.chain(batch_size=8, data_dir=str(tmp_path),
+                         device="cpu")
+    # So does a stage that must start at --base_lr and does not.
+    monkeypatch.setattr(chip_smoke, "tool_launches", tool_launches)
+    monkeypatch.setattr(chip_smoke, "tool_launches",
+                        lambda n, f=1: tool_launches(1, f))
+    out["stages"]["pinned"]["first_lr"] = (2e-4, 0, 0)
+    with pytest.raises(AssertionError, match="pinned did not start at"):
         chip_smoke.chain(batch_size=8, data_dir=str(tmp_path),
                          device="cpu")
 
