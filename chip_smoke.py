@@ -173,6 +173,10 @@ Phases, each printing its elapsed seconds:
                 and ``pinned`` (from the surgery) must start at
                 ``--base_lr``; its numbers must be finite and each
                 training stage must take its steps on the graphed step;
+                each test stage prints the state fit's reading of its
+                start (``reference_runs.test_state``: the accepted
+                share, the head's and the fitted speeds, A), which must
+                be finite with its share in [0, 1];
     Before the kernels line, one line with every phase's wall seconds.
 18. kernels   - one JSON line with every kernel's launches, error, times,
                 share of its bound and store-only floor, at the main
@@ -2722,7 +2726,9 @@ def chain_launches(stage, epochs, n_train, valid_n, test_n, test40_n,
     epoch here; one forward, two decodes, each), none in the surgery (host
     numpy), fit_physics's (``tool_launches``), or a test phase alone: its
     eval batch and visualization forward, two decodes each and a render per
-    refinement iteration (``recipe_decodes``)."""
+    refinement iteration (``recipe_decodes``), and the runner's reading
+    of the state fit at its start (``reference_runs.test_state``: one
+    forward of the first test batch)."""
     kind = stage["kind"]
     if kind == "train":
         return expected_launches(epochs * (n_train // batch_size), valid_n,
@@ -2732,7 +2738,7 @@ def chain_launches(stage, epochs, n_train, valid_n, test_n, test40_n,
         return 0
     if kind == "fit":
         return tool_launches(8)
-    return recipe_decodes(0, eval_batches(test40_n, batch_size), 1,
+    return recipe_decodes(0, eval_batches(test40_n, batch_size), 2,
                           refine_iters(stage["argv"]))[0]
 
 
@@ -2741,6 +2747,22 @@ def chain_epochs(curriculum=CHAIN_CURRICULUM, pinned=CHAIN_PINNED):
     out = {f"curriculum_{i}": e for i, e in enumerate(curriculum, 1)}
     out["pinned"] = pinned
     return out
+
+
+def check_test_state(name, state):
+    """Prints a test stage's state-fit reading (``test_state``) and fails
+    where it is missing, a number of it is not finite or its accepted
+    share lies outside [0, 1]."""
+    from paig_reproduction_tpu_torch.tools import reference_runs as rr
+    print(f"chain stage {name}: {rr.test_state_line(state)}", flush=True)
+    numbers = [] if state is None else [
+        v for k, v in state.items() if k != "accepted" and v is not None]
+    if (state is None or not all(math.isfinite(v) for v in numbers)
+            or not 0.0 <= state["accepted_share"] <= 1.0
+            or state["accepted_share"] != (sum(state["accepted"])
+                                           / len(state["accepted"]))):
+        raise AssertionError(f"chain: {name}'s state-fit reading is "
+                             f"missing or out of range: {state}")
 
 
 def chain(batch_size=100, data_dir=DATA_DIR, device="cuda",
@@ -2778,12 +2800,15 @@ def chain(batch_size=100, data_dir=DATA_DIR, device="cuda",
                                  f"kernel on every decode")
         numbers = [v for key in ("valid", "test", "test_seq40")
                    for v in (row.get(key) or {}).values()]
-        numbers += [row[k] for k in ("A", "A_pointwise") if k in row]
+        numbers += [row[k] for k in ("A", "A_pointwise", "A_traj_err")
+                    if k in row]
         if not all(math.isfinite(v) for v in numbers):
             raise AssertionError(f"chain: {name} has a number that is not "
                                  f"finite: {row}")
-        if stage["kind"] == "test" and row["test"] is None:
-            raise AssertionError(f"chain: {name} logged no test line")
+        if stage["kind"] == "test":
+            if row["test"] is None:
+                raise AssertionError(f"chain: {name} logged no test line")
+            check_test_state(name, row.get("test_state"))
         if stage["kind"] == "train":
             print(f"chain stage {name}: "
                   f"{rr.velocity_line(row['velocity'])}", flush=True)

@@ -59,11 +59,42 @@ the same stages finishes:
     python -m paig_reproduction_tpu_torch.tools.curriculum_probes \\
         --stage pinned --chain_dir CHAIN_DIR --save_dir DIR \\
         [--probes control e f]
+
+``--stage test`` probes what holds the test stage of a finished
+``3bp_chain`` (``TEST_FROM``) in ``CHAIN_DIR``: its pinned stage is reused,
+not run again (each probe copies it and the run's sidecar into
+``DIR/<probe>``), and each probe runs on from it:
+
+* ``control``: the chain's own fit and both test phases;
+* ``g``: the head re-anchor, a training stage ``anchor`` of
+  ``reference_runs.ANCHOR_EPOCHS`` from the pinned stage under
+  ``reference_runs.ANCHOR_FLAGS`` (``--vel_anchor=1.0 --bg_lr_mult=0
+  --base_lr=3e-4``), then the fit and both test phases: a chain's stages
+  (``chain_stages(anchor_flags=...)``), whose head's readings in the
+  stage's ``velocity.jsonl`` show whether it took gradient;
+* ``h``: both test phases on the control's fit at ``--init_state_fit=8``
+  in place of the logs' 3 (``MORE_ITERS``): whether more iterations from
+  the head's start are accepted;
+* ``i``: both test phases on the control's fitted checkpoint with its
+  gravity constant set to the generator's (``log_g`` = log 60,
+  ``set_gravity``): whether the fit's A alone sets pred.
+
+``h`` and ``i`` are readings only: ``h`` departs from the logs' flags and
+``i`` takes the generator's truth, so neither may become a chain stage
+(``reference_runs.CHAINS``). Each test stage writes its state-fit reading
+(``reference_runs.test_state``); a probe passes where both test lines are
+under the bars. ``DIR/test_probes.json`` has each probe's test lines,
+readings, fit and (``g``) anchor stage:
+
+    python -m paig_reproduction_tpu_torch.tools.curriculum_probes \\
+        --stage test --chain_dir CHAIN_DIR --save_dir DIR \\
+        [--probes control g h i]
 """
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import statistics
 
@@ -192,14 +223,22 @@ def pinned_passed(end, valid) -> dict:
 
 
 def _copy_run(src, dst, stages):
-    """``src``'s sidecar and ``stages``' directories into ``dst``."""
+    """``stages``' directories of the run in ``src`` into ``dst``, and its
+    sidecar with those stages' segments and steps alone (a probe's own
+    stages then count only their own), each unless ``dst`` has it: a
+    probe resumed keeps its own record."""
     import shutil
     os.makedirs(dst, exist_ok=True)
-    shutil.copy(os.path.join(src, rr.SIDECAR), dst)
-    for st in stages:
-        if not os.path.exists(os.path.join(dst, st["name"])):
-            shutil.copytree(os.path.join(src, st["name"]),
-                            os.path.join(dst, st["name"]))
+    names = [st["name"] for st in stages]
+    for name in names:
+        if not os.path.exists(os.path.join(dst, name)):
+            shutil.copytree(os.path.join(src, name), os.path.join(dst, name))
+    if not os.path.exists(os.path.join(dst, rr.SIDECAR)):
+        record = rr._read_sidecar(src)
+        for key in ("stages", "steps"):
+            record[key] = {k: v for k, v in record.get(key, {}).items()
+                           if k in names}
+        rr._write_sidecar(dst, record)
 
 
 def run_pinned_probes(save_dir, chain_dir, names=("control", "e", "f"),
@@ -255,25 +294,147 @@ def run_pinned_probes(save_dir, chain_dir, names=("control", "e", "f"),
     return result
 
 
+# The test stage's probes, from a finished run of TEST_FROM.
+TEST_FROM = "3bp_chain"
+TEST_PROBES = ("control", "g", "h", "i")
+# h's Gauss-Newton iterations at the tests, in place of the logs' 3.
+MORE_ITERS = 8
+
+
+def test_probe_stages(name, control_dir, pinned=rr.PINNED_EPOCHS,
+                      anchor=rr.ANCHOR_EPOCHS, batch_size=100, save_every=50,
+                      eval_every=10) -> list:
+    """The stages test probe ``name`` runs, from TEST_FROM's pinned stage
+    on (``control``, ``g``), or its test phases alone from the control's
+    fit (``h``: at MORE_ITERS) or from ``fit`` (``i``: the control's fit
+    with the generator's A, which the probe writes there)."""
+    chain = rr.chain_stages(rr.CURRICULUM_EPOCHS, pinned, batch_size,
+                            save_every, eval_every,
+                            anchor_flags=rr.ANCHOR_FLAGS if name == "g"
+                            else None, anchor=anchor)
+    if name in ("control", "g"):
+        return chain[[s["name"] for s in chain].index("pinned"):]
+    tests = [s for s in chain if s["kind"] == "test"]
+    if name == "h":
+        fit = os.path.join(control_dir, "fit")
+        return [dict(s, start=fit, argv=rr.with_flags(
+            s["argv"], [f"--init_state_fit={MORE_ITERS}"])) for s in tests]
+    if name == "i":
+        return tests
+    raise ValueError(name)
+
+
+def set_gravity(src_dir, dst_dir, A):
+    """``src_dir``'s checkpoint written to ``dst_dir`` with its gravity
+    constant exp(log_g) exp(2 log_m) set to ``A`` (``log_m`` is frozen)."""
+    import torch
+
+    from paig_reproduction_tpu_torch.train.checkpoint import (
+        load_checkpoint,
+        save_checkpoint,
+    )
+    ckpt = load_checkpoint(src_dir)
+    model = ckpt["model"]
+    log_m = float(model["log_m"]) if "log_m" in model else 0.0
+    model["log_g"] = torch.tensor(math.log(A) - 2.0 * log_m,
+                                  dtype=model["log_g"].dtype)
+    os.makedirs(dst_dir, exist_ok=True)
+    save_checkpoint(dst_dir, ckpt)
+
+
+def _test_record(result, stages):
+    """A test probe's record from ``run_chain``'s result: its test lines
+    and readings, the fit's A and error, the anchor stage's end, and
+    whether both test lines are under the bars."""
+    rows = result["stages"]
+    tests = [s["name"] for s in stages if s["kind"] == "test"]
+    out = dict(stages=[s["name"] for s in stages],
+               tests={t: rows[t]["test"] for t in tests},
+               test_state={t: rows[t].get("test_state") for t in tests},
+               passed=all(rows[t]["port_pass"] for t in tests))
+    if "fit" in rows:
+        out["fit"] = {k: rows["fit"].get(k) for k in ("A", "A_pointwise",
+                                                      "A_traj_err")}
+    if "anchor" in rows:
+        out["anchor"] = {k: rows["anchor"].get(k) for k in (
+            "valid", "first_lr", "velocity", "steps", "wall_s",
+            "launches")}
+    return out
+
+
+def run_test_probes(save_dir, chain_dir, names=TEST_PROBES, device="cuda",
+                    data_dir=None, seed=0, pinned=rr.PINNED_EPOCHS,
+                    anchor=rr.ANCHOR_EPOCHS, batch_size=100, save_every=50,
+                    eval_every=10) -> dict:
+    """Runs the test probes ``names`` in ``save_dir`` from TEST_FROM's
+    finished pinned stage in ``chain_dir`` (``h`` and ``i`` after the
+    control, which they read, run where it is missing); returns {probe:
+    its record (``_test_record``)} and writes ``test_probes.json``."""
+    pinned_dir = os.path.join(chain_dir, "pinned")
+    if rr.resume_decision(pinned_dir) != "done":
+        raise SystemExit(f"curriculum_probes: {chain_dir} has no finished "
+                         f"pinned stage; run reference_runs --run "
+                         f"{TEST_FROM} there first")
+    kw = dict(pinned=pinned, anchor=anchor, batch_size=batch_size,
+              save_every=save_every, eval_every=eval_every)
+    control_dir = os.path.join(save_dir, "control")
+    wanted = [n for n in TEST_PROBES if n in names]
+    if {"h", "i"} & set(wanted) and "control" not in wanted:
+        wanted.insert(0, "control")
+    out = {}
+    for name in wanted:
+        d = os.path.join(save_dir, name)
+        stages = test_probe_stages(name, control_dir, **kw)
+        if name in ("control", "g"):
+            _copy_run(chain_dir, d, stages[:1])
+        if name == "i":
+            set_gravity(os.path.join(control_dir, "fit"),
+                        os.path.join(d, "fit"),
+                        rr.CHAIN_RECORD["A_generator"])
+        result = rr.run_chain(TEST_FROM, d, device, data_dir, seed,
+                              stages=stages)
+        out[name] = _test_record(result, stages)
+        states = out[name]["test_state"]
+        print(f"curriculum_probes: test {name}: " + " | ".join(
+            f"{t} {rr._fmt(v)}; {rr.test_state_line(states[t])}"
+            for t, v in out[name]["tests"].items())
+            + f": {'passed' if out[name]['passed'] else 'failed'}",
+            flush=True)
+    first = next((n for n in TEST_PROBES if n in out and out[n]["passed"]),
+                 None)
+    print(f"curriculum_probes: first passing test probe {first}", flush=True)
+    result = dict(probes=out, first_passing=first)
+    with open(os.path.join(save_dir, "test_probes.json"), "w") as f:
+        json.dump(result, f, indent=1)
+    print(json.dumps({k: {kk: v[kk] for kk in ("tests", "passed")}
+                      for k, v in out.items()}), flush=True)
+    return result
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--save_dir", required=True)
-    p.add_argument("--stage", choices=("curriculum", "pinned"),
+    p.add_argument("--stage", choices=("curriculum", "pinned", "test"),
                    default="curriculum")
     p.add_argument("--chain_dir", default="",
                    help="--stage pinned: the save_dir of the curriculum "
-                        "the probes start from")
+                        "the probes start from; --stage test: a finished "
+                        "3bp_chain's save_dir")
     p.add_argument("--probes", nargs="+", default=None,
                    help="default: base a b c d; control e f with --stage "
-                        "pinned")
+                        "pinned; control g h i with --stage test")
     p.add_argument("--data_dir", default="")
     p.add_argument("--device", default="cuda")
     p.add_argument("--seed", type=int, default=0)
     args = p.parse_args(argv)
     os.makedirs(args.save_dir, exist_ok=True)
+    if args.stage != "curriculum" and not args.chain_dir:
+        p.error(f"--stage {args.stage} needs --chain_dir")
+    if args.stage == "test":
+        return run_test_probes(args.save_dir, args.chain_dir,
+                               args.probes or list(TEST_PROBES), args.device,
+                               args.data_dir or None, args.seed)
     if args.stage == "pinned":
-        if not args.chain_dir:
-            p.error("--stage pinned needs --chain_dir")
         return run_pinned_probes(args.save_dir, args.chain_dir,
                                  args.probes or list(PINNED_PROBES),
                                  args.device, args.data_dir or None,

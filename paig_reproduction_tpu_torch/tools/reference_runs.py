@@ -56,7 +56,12 @@ at a training stage's start and after each checkpoint it saves, the runner
 reads the velocity head (``velocity_state``: the rollout's start
 velocities, the saturated share of its tanh units, the gradient's norms)
 into the stage's ``velocity.jsonl``; the line gives each training stage's
-last reading.
+last reading. The fit stage's ``fit.json`` also holds the trajectory
+fit's median error (``A_traj_err``), and each test stage, after its test
+line, reads the state fit of its start (``test_state``: which of the
+first 100 test sequences ``--init_state_fit`` accepts, the head's and the
+fitted start speeds, the pred loss of each kind, the checkpoint's A) into
+its ``test_state.json``; the line gives both beside the test line.
 """
 from __future__ import annotations
 
@@ -168,6 +173,7 @@ SURGERY_FLAGS = ["--rescue_slot=all", "--disk_radius=3",
 TEST_LOGS = {"test": "benchmarks/3bp_test_log.txt",
              "test_refine": "benchmarks/3bp_refine_test_log.txt"}
 FIT_JSON = "fit.json"
+TEST_STATE_JSON = "test_state.json"
 # What the JAX package's chain reached at each stage (CONVERGENCE.md; no log
 # holds these): the valid recons of a warm trunk from spring (all three
 # slots live, no curriculum) and of the slot curriculum's best checkpoint;
@@ -185,9 +191,25 @@ def test_flags(log) -> list:
             if not a.startswith(("--ckpt_dir=", "--save_dir="))]
 
 
+# The head re-anchor stage between the pinned stage and the fit: its
+# epochs, and its flags over the pinned stage's model flags (the velocity
+# head tied to the encoder's central difference, the background still
+# pinned, the record's untried 3bp_align2 rate, CONVERGENCE.md:407-409).
+ANCHOR_EPOCHS = 300
+ANCHOR_FLAGS = ["--vel_anchor=1.0", "--bg_lr_mult=0", "--base_lr=3e-4"]
+
+
+def with_flags(argv, flags) -> list:
+    """``argv`` with ``flags`` appended in place of its flags of the same
+    names."""
+    names = {f.split("=", 1)[0] for f in flags}
+    return [a for a in argv if a.split("=", 1)[0] not in names] + list(flags)
+
+
 def chain_stages(curriculum=CURRICULUM_EPOCHS, pinned=PINNED_EPOCHS,
                  batch_size=100, save_every=50, eval_every=10,
-                 curriculum_flags=(), pinned_flags=()) -> list:
+                 curriculum_flags=(), pinned_flags=(), anchor_flags=None,
+                 anchor=ANCHOR_EPOCHS) -> list:
     """3bp_color's chain, stage by stage: its ``name``, ``kind`` (train,
     surgery, fit or test), ``start`` (the stage whose checkpoint it starts
     from, or a directory) and ``argv`` (the flags of the CLI or the tool
@@ -207,7 +229,12 @@ def chain_stages(curriculum=CURRICULUM_EPOCHS, pinned=PINNED_EPOCHS,
     1.7 s a 3bp epoch takes on the card); the epochs given are multiples
     of it, so each stage's last epoch is evaluated. ``curriculum_flags``
     are appended to the curriculum stages' flags, ``pinned_flags`` to the
-    pinned stage's."""
+    pinned stage's. With ``anchor_flags`` a training stage ``anchor`` of
+    ``anchor`` epochs from the pinned stage comes before the fit, on the
+    model flags with ``anchor_flags`` in place of theirs: it carries the
+    pinned stage's step, optimizer and chain epochs, so its LR schedule,
+    over the chain's ``pinned + anchor`` epochs, reads the pinned stage's
+    count."""
     model = _3BP_RECIPE + [f"--batch_size={batch_size}",
                            f"--save_every_n_epochs={save_every}",
                            f"--eval_every_n_epochs={eval_every}",
@@ -225,9 +252,14 @@ def chain_stages(curriculum=CURRICULUM_EPOCHS, pinned=PINNED_EPOCHS,
              argv=["--task=3bp_color"] + SURGERY_FLAGS),
         dict(name="pinned", kind="train", start="surgery",
              argv=model + [f"--epochs={pinned}", "--bg_lr_mult=0"]
-             + list(pinned_flags)),
-        dict(name="fit", kind="fit", start="pinned",
-             argv=["--task=3bp_color", "--write"])]
+             + list(pinned_flags))]
+    if anchor_flags is not None:
+        stages.append(dict(name="anchor", kind="train", start="pinned",
+                           argv=with_flags(model + [
+                               f"--epochs={pinned + anchor}"],
+                               anchor_flags)))
+    stages.append(dict(name="fit", kind="fit", start=stages[-1]["name"],
+                       argv=["--task=3bp_color", "--write"]))
     stages += [dict(name=name, kind="test", start="fit",
                     argv=test_flags(log), log=log)
                for name, log in TEST_LOGS.items()]
@@ -743,7 +775,7 @@ def stage_status(stage, stage_dir) -> str:
     """What a chain's stage needs: ``done``, or for a training stage
     ``resume_decision``'s answer, else ``fresh`` (a surgery without its
     checkpoint, a fit without its record, a test phase without its line
-    is run again from its start)."""
+    or its ``test_state`` is run again from its start)."""
     kind = stage["kind"]
     if kind == "train":
         return resume_decision(stage_dir)
@@ -751,7 +783,8 @@ def stage_status(stage, stage_dir) -> str:
             "fit": os.path.join(stage_dir, FIT_JSON)}.get(kind)
     if done is not None:
         return "done" if os.path.exists(done) else "fresh"
-    return "done" if resume_decision(stage_dir) == "done" else "fresh"
+    read = os.path.exists(os.path.join(stage_dir, TEST_STATE_JSON))
+    return "done" if read and resume_decision(stage_dir) == "done" else "fresh"
 
 
 def _echoed(fn, argv, path):
@@ -772,13 +805,17 @@ def _echoed(fn, argv, path):
 
 _GRAVITY_FIT = re.compile(r"(pointwise|trajectory) gravity fit: "
                           r"A=(?:g\*m\^2=)?(\S+) ")
+_TRAJ_ERR = re.compile(r"trajectory gravity fit: .*\(median traj err "
+                       r"(\S+)\)")
 
 
 def _fit(argv, start_dir, stage_dir, data_dir, device):
     """fit_physics with ``argv`` (``--write``) on a copy of ``start_dir``'s
     checkpoint in ``stage_dir``; its printed pointwise fit and the written
     values go to FIT_JSON: ``A`` is the trajectory fit as written, the exp
-    of the written ``log_g`` (the tool prints it to four decimals)."""
+    of the written ``log_g`` (the tool prints it to four decimals), and
+    ``A_traj_err`` the trajectory fit's median error as printed (px, to
+    three decimals)."""
     import shutil
 
     from paig_reproduction_tpu_torch.tools import fit_physics
@@ -792,6 +829,7 @@ def _fit(argv, start_dir, stage_dir, data_dir, device):
     with open(os.path.join(stage_dir, FIT_JSON), "w") as f:
         json.dump(dict(A_pointwise=fits["pointwise"],
                        A=math.exp(float(fitted["log_g"])),
+                       A_traj_err=float(_TRAJ_ERR.search(printed).group(1)),
                        log_g=float(fitted["log_g"]),
                        frame_offset=fitted["frame_offset"].tolist()), f)
 
@@ -802,16 +840,45 @@ VELOCITY_JSONL = "velocity.jsonl"
 SATURATED = 0.99
 
 
-def valid_batch(data_dir, n=100, task="3bp_color"):
+def valid_batch(data_dir, n=100, task="3bp_color", test=False):
     """The first ``n`` sequences of the task's valid split in the file's
-    order, as the model takes them: float32 [n, T, C, H, W] in [0, 1]."""
+    order, as the model takes them: float32 [n, T, C, H, W] in [0, 1].
+    With ``test``, of the test split of the test phase's file (the longer
+    sequences)."""
     import numpy as np
 
     from paig_reproduction_tpu_torch.cli import TASK_TABLE
-    with np.load(os.path.join(data_dir, TASK_TABLE[task][0])) as d:
-        x = d["valid_x"][:n]
+    with np.load(os.path.join(data_dir, TASK_TABLE[task][int(test)])) as d:
+        x = d["test_x" if test else "valid_x"][:n]
     return np.ascontiguousarray(np.transpose(
         x.astype(np.float32) / 255.0, (0, 1, 4, 2, 3)))
+
+
+def _restored_model(ckpt_dir, argv, seq_len, device):
+    """The model of the CLI flags ``argv`` at ``seq_len`` with
+    ``ckpt_dir``'s checkpoint restored by name as the trainer restores it
+    (what it lacks keeps the JAX package's initial value at ``--seed``),
+    without consuming torch's random numbers or logging."""
+    import torch
+
+    from paig_reproduction_tpu_torch import cli
+    from paig_reproduction_tpu_torch.train.checkpoint import (
+        restore_checkpoint,
+    )
+    from paig_reproduction_tpu_torch.utils.misc import use_full_f32
+
+    if torch.device(device).type == "cuda":
+        use_full_f32()
+    args = cli.build_parser().parse_args(list(argv) + [f"--device={device}"])
+    quiet = logger.disabled
+    logger.disabled = True
+    try:
+        with torch.random.fork_rng(devices=[]):
+            model = cli.build_model(args, seq_len).to(device)
+        restore_checkpoint(ckpt_dir, model)
+    finally:
+        logger.disabled = quiet
+    return model
 
 
 def velocity_state(ckpt_dir, data, device="cuda", argv=None) -> dict:
@@ -839,25 +906,11 @@ def velocity_state(ckpt_dir, data, device="cuda", argv=None) -> dict:
     import numpy as np
     import torch
 
-    from paig_reproduction_tpu_torch import cli
     from paig_reproduction_tpu_torch.models import compute_losses
-    from paig_reproduction_tpu_torch.train.checkpoint import (
-        restore_checkpoint,
-    )
-    from paig_reproduction_tpu_torch.utils.misc import use_full_f32
 
-    if torch.device(device).type == "cuda":
-        use_full_f32()
-    argv = list(argv or _3BP_RECIPE + ["--batch_size=100", "--seed=0"])
-    args = cli.build_parser().parse_args(argv + [f"--device={device}"])
-    quiet = logger.disabled
-    logger.disabled = True
-    try:
-        with torch.random.fork_rng(devices=[]):
-            model = cli.build_model(args, data.shape[1]).to(device)
-        restore_checkpoint(ckpt_dir, model)
-    finally:
-        logger.disabled = quiet
+    model = _restored_model(
+        ckpt_dir, argv or _3BP_RECIPE + ["--batch_size=100", "--seed=0"],
+        data.shape[1], device)
     head = model.velocity_encoder
     hidden = []
     hooks = [layer.register_forward_hook(
@@ -893,6 +946,84 @@ def velocity_state(ckpt_dir, data, device="cuda", argv=None) -> dict:
         recons=float(ev["eval_recons_loss"].detach()),
         grad_norm=norm(model.parameters()),
         vel_grad_norm=norm(head.parameters()))
+
+
+def test_state(ckpt_dir, data, device="cuda", argv=None) -> dict:
+    """The rollout's start of a test phase on ``ckpt_dir``'s checkpoint and
+    the frames ``data`` (``valid_batch``'s with ``test``), read only: the
+    model of the test phase's flags ``argv`` (``--init_state_fit``, a
+    refinement) with the checkpoint restored as ``velocity_state``
+    restores it. The state
+    fit (``ops/state_fit.py``) returns the velocity head's output exactly
+    where it rejects a sequence's fit, so a sequence counts as accepted
+    where its start velocity differs from the head's. Returns
+
+    * ``accepted``: each sequence's acceptance, and ``accepted_share``;
+    * ``head_speed``, ``head_speed_p95``: the median and 95th percentile
+      of the head's start speeds over every object and sequence (px a
+      time unit);
+    * ``fit_speed``, ``fit_speed_p95``: the same of the fitted start
+      velocities of the accepted sequences (None where none is);
+    * ``pred``, ``recons``: the batch's eval losses, and
+      ``pred_accepted``, ``pred_rejected``: the pred loss over the
+      accepted and the rejected sequences (None where there are none);
+    * ``A``: the checkpoint's gravity constant, exp(log_g) exp(2 log_m).
+
+    It consumes none of torch's random numbers and logs nothing."""
+    import numpy as np
+    import torch
+
+    from paig_reproduction_tpu_torch.models import compute_losses
+
+    model = _restored_model(ckpt_dir, argv, data.shape[1], device)
+    heads = []
+    hook = model.velocity_encoder.register_forward_hook(
+        lambda mod, inp, out: heads.append(out.detach()))
+    try:
+        with torch.no_grad():
+            x = torch.from_numpy(np.asarray(data)).to(device)
+            out, aux = model(x)
+            _, ev = compute_losses(model, x, out, aux["recons_out"], aux)
+            per_seq = torch.sum((x[:, model.input_steps:] - out) ** 2,
+                                dim=(2, 3, 4))[:, :model.pred_steps]
+    finally:
+        hook.remove()
+    cu2 = model.coord_units // 2
+    start = aux["pos_vel_seq"][:, 0, cu2:]
+    accepted = torch.any(start != heads[0], dim=1).cpu().numpy()
+    head = heads[0].double().cpu().numpy().reshape(len(accepted), -1, 2)
+    fit = start.double().cpu().numpy().reshape(len(accepted), -1, 2)
+    head_speeds = np.linalg.norm(head, axis=-1)
+    fit_speeds = np.linalg.norm(fit[accepted], axis=-1)
+    pred = per_seq.double().mean(dim=1).cpu().numpy()
+
+    def stat(fn, values):
+        return float(fn(values)) if values.size else None
+
+    return dict(
+        accepted=accepted.tolist(),
+        accepted_share=float(np.mean(accepted)),
+        head_speed=float(np.median(head_speeds)),
+        head_speed_p95=float(np.percentile(head_speeds, 95)),
+        fit_speed=stat(np.median, fit_speeds),
+        fit_speed_p95=stat(lambda v: np.percentile(v, 95), fit_speeds),
+        pred=float(ev["eval_pred_loss"]),
+        recons=float(ev["eval_recons_loss"]),
+        pred_accepted=stat(np.mean, pred[accepted]),
+        pred_rejected=stat(np.mean, pred[~accepted]),
+        A=math.exp(float(model.log_g.detach())
+                   + 2.0 * float(model.log_m.detach())))
+
+
+def _record_test_state(stage_dir, ckpt_dir, data_dir, device, argv):
+    """``test_state`` of a test stage's start on the first 100 test
+    sequences (its batch, where smaller), written to TEST_STATE_JSON."""
+    n = min(100, int(flag(argv, "batch_size", 100)))
+    state = test_state(ckpt_dir, valid_batch(data_dir, n, test=True),
+                       device, argv)
+    with open(os.path.join(stage_dir, TEST_STATE_JSON), "w") as f:
+        json.dump(state, f)
+    return state
 
 
 def _record_velocity(stage_dir, ckpt_dir, epoch, data, device, argv):
@@ -968,7 +1099,12 @@ def _stage_fn(stage, status, save_dir, data_dir, device, seed):
         shutil.rmtree(d)
     if stage["kind"] == "test":
         argv = stage["argv"] + [f"--ckpt_dir={start}", f"--save_dir={d}"]
-        return lambda: _cli(argv + where)
+
+        def test():
+            out = _cli(argv + where)
+            _record_test_state(d, start, data_dir, device, stage["argv"])
+            return out
+        return test
     model = [f"--seed={seed}" if a == "--seed=0" else a
              for a in stage["argv"]]
     argv = model + ["--use_ckpt", "--resume_remaining_epochs",
@@ -1058,6 +1194,23 @@ def velocity_line(state) -> str:
                 state["vel_grad_norm"]))
 
 
+def test_state_line(state) -> str:
+    """A ``test_state`` record in words."""
+    if state is None:
+        return "state fit not read"
+
+    def num(v, f="%.4f"):
+        return "none" if v is None else f % v
+    return ("state fit accepted %d of %d sequences (share %.4f); start "
+            "speed median / p95: head %.4f / %.4f, fitted %s / %s; pred "
+            "accepted / rejected %s / %s; A %.4f" % (
+                sum(state["accepted"]), len(state["accepted"]),
+                state["accepted_share"], state["head_speed"],
+                state["head_speed_p95"], num(state["fit_speed"]),
+                num(state["fit_speed_p95"]), num(state["pred_accepted"]),
+                num(state["pred_rejected"]), state["A"]))
+
+
 def _fmt(t):
     return ("none" if t is None else
             " ".join(f"{k}={t[k]:.4f}" for k in KEYS))
@@ -1106,6 +1259,10 @@ def compare_chain(name, save_dir, stages=None) -> dict:
         elif stage["kind"] == "test":
             ref = parse_log(os.path.join(REPO, stage["log"]))
             port = parse_log(log) if os.path.exists(log) else {"test": None}
+            state = os.path.join(d, TEST_STATE_JSON)
+            if os.path.exists(state):
+                with open(state) as f:
+                    row["test_state"] = json.load(f)
             row.update(test=port["test"], log_test=ref["test"],
                        log_first_logged=ref["first_logged"],
                        port_pass=passes(port["test"]),
@@ -1150,7 +1307,9 @@ def compare_chain(name, save_dir, stages=None) -> dict:
             parts.append(
                 "A=g*m^2 " + ("none" if "A" not in row else
                               f"pointwise {row['A_pointwise']:.4f}, "
-                              f"trajectory (written) {row['A']:.4f}")
+                              f"trajectory (written) {row['A']:.4f}, its "
+                              f"median error "
+                              f"{row.get('A_traj_err', float('nan')):.3f}")
                 + f" (generator {rec['A_generator']:g}, record "
                 f"{rec['A']})")
         elif row["kind"] == "test":
@@ -1159,7 +1318,8 @@ def compare_chain(name, save_dir, stages=None) -> dict:
                 f"{'pass' if row['port_pass'] else 'miss'}; log "
                 f"(the JAX package's, first logged "
                 f"{row['log_first_logged']}) {_fmt(row['log_test'])} "
-                f"{'pass' if row['log_pass'] else 'miss'}")
+                f"{'pass' if row['log_pass'] else 'miss'}; "
+                + test_state_line(row.get("test_state")))
     line = (f"reference_runs: {name} (seed {side.get('seed', 0)}): "
             + " | ".join(parts) + " | bars "
             + " ".join(f"{k}<{v}" for k, v in bars.items()) + " | stages: "

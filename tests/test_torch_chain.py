@@ -27,7 +27,9 @@
 * the runner's chain at 1 epoch a stage (2 pinned), B=8, on a cut of the
   tracked 3bp files: cut after the surgery and again after the pinned
   stage's first epoch, it resumes where it stopped and runs no finished
-  stage again; each stage's files, argv and steps.
+  stage again; each stage's files, argv and steps; the fit's trajectory
+  error and each test phase's state-fit reading (``test_state``), whose
+  absence alone reruns that test phase.
 """
 import functools
 import json
@@ -445,14 +447,36 @@ def test_chain_runs_cut_and_resumed_on_the_cpu(tmp_path, monkeypatch,
     written = checkpoint.load_checkpoint(str(save_dir / "fit"))["model"]
     assert np.exp(float(written["log_g"])) == pytest.approx(fit["A"],
                                                             rel=1e-6)
+    # The trajectory fit's median error, as fit_physics printed it.
+    printed = (save_dir / "fit" / "fit_physics.txt").read_text()
+    assert f"(median traj err {fit['A_traj_err']:.3f})" in printed
+    assert out["stages"]["fit"]["A_traj_err"] == fit["A_traj_err"]
     for name in ("test", "test_refine"):
         assert rr.resume_decision(str(save_dir / name)) == "done"
         assert out["stages"][name]["test"] is not None
+        # The state fit's reading of the test phase's start, on its first
+        # batch of test sequences, with the fit's A.
+        with open(save_dir / name / rr.TEST_STATE_JSON) as f:
+            state = json.load(f)
+        assert out["stages"][name]["test_state"] == state
+        assert len(state["accepted"]) == 4
+        assert state["accepted_share"] == np.mean(state["accepted"])
+        assert 0 <= state["accepted_share"] <= 1
+        assert state["A"] == pytest.approx(fit["A"], rel=1e-6)
+        assert all(np.isfinite(state[k]) for k in (
+            "head_speed", "head_speed_p95", "pred", "recons"))
 
-    # A finished chain runs nothing again, and goes on at no other seed.
+    # A finished chain runs nothing again, and goes on at no other seed;
+    # a test phase without its state reading is run again.
     ran[:] = []
     again = run()
     assert ran == [] and again["stages"] == out["stages"]
+    os.remove(save_dir / "test_refine" / rr.TEST_STATE_JSON)
+    again = run()
+    assert [stage_of(a) for a in ran] == ["test_refine"]
+    assert again["stages"]["test_refine"]["test_state"] == out["stages"][
+        "test_refine"]["test_state"]
+    ran[:] = []
     with pytest.raises(SystemExit, match="ran at seed 0; refusing to go on "
                                          "at seed 1"):
         rr.run_chain(chain, str(save_dir), "cpu", str(data), seed=1,

@@ -31,8 +31,15 @@ velocity head, held to the JAX package on the CPU:
   restores (``test_trunk_restore_learning_rates``): the port's LR is the
   JAX schedule's at its optimizer's restored count;
 * the probes' flags and their tests of a live head, the pinned probes'
-  too (``tools/curriculum_probes.py``).
+  too, and the test probes' stages (``tools/curriculum_probes.py``);
+* ``test_state`` on that checkpoint and the first test sequences of the
+  seq-40 file, under the ``test`` phase's flags, against the JAX
+  package's ``apply`` (its ``fit_initial_state``, the head's output
+  captured) in float64: the same sequences accepted, the head's and the
+  fitted speeds within ``VEL_ATOL``; and with the head's last bias shifted
+  out of the frame, every sequence rejected by both.
 """
+import json
 import os
 
 import jax
@@ -52,6 +59,7 @@ from paig_reproduction_tpu_torch.convert import flax_to_state_dict
 from paig_reproduction_tpu_torch.data import iterators
 from paig_reproduction_tpu_torch.tools import curriculum_probes as cp
 from paig_reproduction_tpu_torch.tools import reference_runs as rr
+from paig_reproduction_tpu_torch.train import checkpoint
 from paig_reproduction_tpu_torch.train.trainer import Trainer
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -545,3 +553,236 @@ def test_pinned_probe_flags_and_tests():
     assert cp.pinned_passed(live, None)["recons"] is False
     flung = dict(spread=0.001, speed_p95=96.0, saturated=[0.99, 0.98])
     assert not any(cp.pinned_passed(flung, {"recons": 13.0}).values())
+
+
+# The head's last bias shifted by this (px a time unit): three steps of
+# the state fit, each clamped to 16, cannot bring it back.
+FLUNG_BIAS = 200.0
+
+
+@pytest.fixture(scope="module")
+def jax_test_state(tmp_path_factory):
+    """The JAX checkpoint of ``tests/jax_3bp.py`` in both packages, the
+    first test sequences of the seq-40 file, the ``test`` phase's flags
+    and the JAX package's float64 (start velocities, head's velocities)
+    of a params tree."""
+    import dataclasses
+
+    import orbax.checkpoint as ocp
+    from paig_reproduction_tpu.models import PhysicsNet as JaxPhysicsNet
+    jax_dir, port_dir = jax_3bp.write(str(tmp_path_factory.mktemp("ts")))
+    x = rr.valid_batch(DATA, 8, test=True)
+    argv = rr.test_flags(rr.TEST_LOGS["test"])
+    port = cli.build_model(cli.build_parser().parse_args(
+        argv + ["--device=cpu"]), x.shape[1])
+    fields = {f.name for f in dataclasses.fields(JaxPhysicsNet)}
+    model = JaxPhysicsNet(**{k: v for k, v in port.config.items()
+                             if k in fields})
+    assert (model.init_state_fit, model.seq_len) == (3, 40)
+    params = jax.device_get(ocp.PyTreeCheckpointer().restore(
+        os.path.join(jax_dir, "model.ckpt")))["params"]
+
+    @jax.jit
+    def start(p):
+        (_, aux), state = model.apply(
+            {"params": p}, jnp.asarray(x, jnp.float64),
+            capture_intermediates=True, mutable=["intermediates"])
+        head = state["intermediates"]["velocity_encoder"]["__call__"][0]
+        return aux["pos_vel_seq"][:, 0, 6:], head
+
+    def run(p):
+        with jax.enable_x64(True):
+            fit, head = start(jax.tree.map(
+                lambda a: jnp.asarray(a, jnp.float64), p))
+        return (np.asarray(fit, np.float64).reshape(len(x), 3, 2),
+                np.asarray(head, np.float64).reshape(len(x), 3, 2))
+    return dict(port_dir=port_dir, params=params, x=x, argv=argv, run=run)
+
+
+@pytest.mark.parametrize("case", ["trunk_head", "flung_head"])
+def test_test_state_matches_jax(jax_test_state, tmp_path, case):
+    s = jax_test_state
+    params, port_dir = s["params"], s["port_dir"]
+    if case == "flung_head":
+        params = jax.tree.map(lambda a: a, params)
+        dense = params["velocity_encoder"]["TorchDense_2"]
+        dense["bias"] = np.asarray(dense["bias"]) + FLUNG_BIAS
+        ckpt = checkpoint.load_checkpoint(port_dir)
+        ckpt["model"]["velocity_encoder.dense.2.bias"] += FLUNG_BIAS
+        port_dir = str(tmp_path)
+        checkpoint.save_checkpoint(port_dir, ckpt)
+    rng = torch.get_rng_state()
+    port = rr.test_state(port_dir, s["x"], "cpu", s["argv"])
+    assert torch.equal(torch.get_rng_state(), rng)
+    fit, head = s["run"](params)
+    accepted = np.any(fit != head, axis=(1, 2))
+    assert port["accepted"] == accepted.tolist()
+    assert port["accepted_share"] == np.mean(accepted)
+    head_speeds = np.linalg.norm(head, axis=-1)
+    fit_speeds = np.linalg.norm(fit[accepted], axis=-1)
+    np.testing.assert_allclose(
+        [port["head_speed"], port["head_speed_p95"]],
+        [np.median(head_speeds), np.percentile(head_speeds, 95)], rtol=0,
+        atol=VEL_ATOL)
+    if case == "trunk_head":
+        assert accepted.any()
+        np.testing.assert_allclose(
+            [port["fit_speed"], port["fit_speed_p95"]],
+            [np.median(fit_speeds), np.percentile(fit_speeds, 95)], rtol=0,
+            atol=VEL_ATOL)
+        assert port["pred_accepted"] is not None
+    else:
+        assert not accepted.any() and port["head_speed"] > FLUNG_BIAS / 2
+        assert (port["fit_speed"], port["fit_speed_p95"],
+                port["pred_accepted"]) == (None, None, None)
+    assert port["A"] == pytest.approx(1.0)
+    assert np.isfinite([port["pred"], port["recons"]]).all()
+
+
+def test_test_probe_flags_and_tests(tmp_path):
+    """The test probes' stages: the control's are 3bp_chain's from its
+    pinned stage on; g's add the anchor stage (the pinned stage's model
+    flags with ANCHOR_FLAGS in place of theirs, 300 epochs on the chain's
+    1000) before the fit; h's and i's are the test phases alone, h's at
+    --init_state_fit=8 on the control's fit, i's on a checkpoint of the
+    generator's A. No CHAINS entry runs h's or i's: every chain's test
+    phases keep their logs' flags and start from the chain's own fit.
+    A probe passes where both test lines are under the bars."""
+    assert (cp.TEST_FROM, cp.TEST_PROBES) == ("3bp_chain",
+                                              ("control", "g", "h", "i"))
+    assert rr.ANCHOR_FLAGS == ["--vel_anchor=1.0", "--bg_lr_mult=0",
+                               "--base_lr=3e-4"]
+    chain = rr.CHAINS[cp.TEST_FROM]["stages"]()
+    names = [s["name"] for s in chain]
+    control = str(tmp_path / "control")
+    assert cp.test_probe_stages("control", control) == chain[4:]
+    g = cp.test_probe_stages("g", control)
+    assert [s["name"] for s in g] == ["pinned", "anchor", "fit", "test",
+                                      "test_refine"]
+    assert g[0] == chain[4] and g[3:] == chain[6:]
+    assert g[1]["start"] == "pinned" and g[2]["start"] == "anchor"
+    parser = cli.build_parser()
+    anchor, pinned = (parser.parse_args(g[i]["argv"]) for i in (1, 0))
+    assert (anchor.epochs, anchor.vel_anchor, anchor.bg_lr_mult,
+            anchor.base_lr) == (1300, 1.0, 0.0, 3e-4)
+    assert (pinned.epochs, pinned.vel_anchor, pinned.base_lr) == (
+        1000, 0.0, 1e-3)
+    assert {k: v for k, v in vars(anchor).items() if k not in (
+        "epochs", "vel_anchor", "base_lr")} == {
+        k: v for k, v in vars(pinned).items() if k not in (
+            "epochs", "vel_anchor", "base_lr")}
+    h = cp.test_probe_stages("h", control)
+    i = cp.test_probe_stages("i", control)
+    tests = [s for s in chain if s["kind"] == "test"]
+    assert [s["name"] for s in h] == [s["name"] for s in i] == [
+        "test", "test_refine"]
+    assert i == tests
+    for hs, ts in zip(h, tests):
+        assert hs["start"] == os.path.join(control, "fit")
+        assert hs["argv"] == [a for a in ts["argv"]
+                              if a != "--init_state_fit=3"] + [
+            "--init_state_fit=8"]
+    with pytest.raises(ValueError):
+        cp.test_probe_stages("e", control)
+    for spec in rr.CHAINS.values():
+        stages = spec["stages"]()
+        for s in stages:
+            assert not os.path.isabs(s["start"]) or s["start"] == rr.TRUNK
+            if s["kind"] == "test":
+                assert s["argv"] == rr.test_flags(s["log"])
+                assert s["start"] == "fit"
+    assert names == ["curriculum_1", "curriculum_2", "curriculum_3",
+                     "surgery", "pinned", "fit", "test", "test_refine"]
+
+    # set_gravity: exp(log_g) exp(2 log_m) becomes A, nothing else moves.
+    src, dst = tmp_path / "src", tmp_path / "dst"
+    src.mkdir()
+    model = {"log_g": torch.tensor(0.5), "log_m": torch.tensor(0.0),
+             "w": torch.arange(3.0)}
+    checkpoint.save_checkpoint(str(src), {"model": model, "step": 7})
+    cp.set_gravity(str(src), str(dst), 60.0)
+    out = checkpoint.load_checkpoint(str(dst))
+    assert out["step"] == 7 and torch.equal(out["model"]["w"], model["w"])
+    assert float(torch.exp(out["model"]["log_g"])) == pytest.approx(60.0)
+    assert out["model"]["log_g"].dtype == torch.float32
+
+    line = dict(pred=2.9, recons=1.4, extrap=9.0)
+    rows = {"test": dict(test=line, port_pass=True),
+            "test_refine": dict(test=line, port_pass=False)}
+    record = cp._test_record({"stages": rows}, tests)
+    assert (record["passed"], record["tests"]["test"]) == (False, line)
+    rows["test_refine"]["port_pass"] = True
+    assert cp._test_record({"stages": rows}, tests)["passed"]
+
+
+def test_test_probes_run_on_the_cpu(tmp_path, monkeypatch):
+    """The test probes on a tiny 3bp_chain (B=8, 1 epoch a stage, 2
+    pinned): the pinned stage is copied, not run again; g's anchor stage
+    trains 1 epoch at the schedule of the pinned stage's count, its head
+    read at its start and end with a gradient; h's tests run at 8
+    iterations on the control's fit, i's on the generator's A; each test
+    stage has its reading; a second call runs nothing again."""
+    import functools
+    import logging
+
+    from test_torch_chain import _tiny_3bp
+    from paig_reproduction_tpu_torch.tools import fit_physics
+    monkeypatch.setenv("PAIG_VIZ_EXAMPLES", "1")
+    monkeypatch.setattr(fit_physics, "encoder_positions", functools.partial(
+        fit_physics.encoder_positions, n_batches=1, batch_size=8))
+    logger = logging.getLogger("paig")
+    handlers = list(logger.handlers)
+    data, chain_dir, save_dir = (str(tmp_path / n) for n in ("d", "c", "p"))
+    _tiny_3bp(tmp_path / "d")
+    kw = dict(batch_size=8, save_every=1, eval_every=1)
+    try:
+        rr.run_chain(cp.TEST_FROM, chain_dir, "cpu", data, stages=rr.CHAINS[
+            cp.TEST_FROM]["stages"]((1, 1, 1), 2, **kw)[:5])
+        pinned_log = open(os.path.join(chain_dir, "pinned",
+                                       "log.txt")).read()
+        out = cp.run_test_probes(save_dir, chain_dir, ["g", "h", "i"], "cpu",
+                                 data, pinned=2, anchor=1, **kw)
+        assert open(os.path.join(chain_dir, "pinned",
+                                 "log.txt")).read() == pinned_log
+        probes = out["probes"]
+        assert list(probes) == ["control", "g", "h", "i"]
+        with open(os.path.join(save_dir, "test_probes.json")) as f:
+            assert json.load(f) == json.loads(json.dumps(out))
+        for name, record in probes.items():
+            assert record["passed"] is False
+            for t in ("test", "test_refine"):
+                state = record["test_state"][t]
+                assert 0 <= state["accepted_share"] <= 1
+                assert len(state["accepted"]) == 4
+        side = rr._read_sidecar(os.path.join(save_dir, "g"))
+        assert list(side["stages"]["pinned"]) == list(
+            rr._read_sidecar(chain_dir)["stages"]["pinned"])
+        assert set(side["stages"]) == {"pinned", "anchor", "fit", "test",
+                                       "test_refine"}
+        anchor = probes["g"]["anchor"]
+        assert anchor["steps"] == 1
+        assert tuple(anchor["first_lr"]) == (pytest.approx(3e-4 / 5), 2, 2)
+        records = rr._velocity_records(os.path.join(save_dir, "g", "anchor"))
+        assert [r["epoch"] for r in records] == [0, 1]
+        assert all(r["vel_grad_norm"] > 0 for r in records)
+        assert records[0]["step"] == 2
+        assert probes["g"]["fit"]["A_traj_err"] >= 0
+        control_a = probes["control"]["fit"]["A"]
+        for t in ("test", "test_refine"):
+            assert probes["h"]["test_state"][t]["A"] == pytest.approx(
+                control_a, rel=1e-6)
+            assert probes["i"]["test_state"][t]["A"] == pytest.approx(60.0)
+            header = rr.parse_log(os.path.join(save_dir, "h", t,
+                                               "log.txt"))["header"]
+            assert "--init_state_fit=8" in header
+            assert f"--ckpt_dir={save_dir}/control/fit" in header
+        again = cp.run_test_probes(save_dir, chain_dir, ["g", "h", "i"],
+                                   "cpu", data, pinned=2, anchor=1, **kw)
+        assert json.loads(json.dumps(again)) == json.loads(json.dumps(out))
+        assert rr._read_sidecar(os.path.join(save_dir, "g")) == side
+        with pytest.raises(SystemExit, match="no finished pinned stage"):
+            cp.run_test_probes(save_dir, str(tmp_path / "none"), ["control"],
+                               "cpu", data)
+    finally:
+        for h in set(logger.handlers) - set(handlers):
+            logger.removeHandler(h)

@@ -638,7 +638,7 @@ def test_chain_phase_counts_every_stage_on_the_cpu(tmp_path, monkeypatch,
     assert out["run"] == chip_smoke.CHAIN
     assert {k: v["launches"] for k, v in stages.items()} == {
         "curriculum_1": 46, "curriculum_2": 22, "curriculum_3": 22,
-        "surgery": 0, "pinned": 30, "fit": 4, "test": 4, "test_refine": 10}
+        "surgery": 0, "pinned": 30, "fit": 4, "test": 6, "test_refine": 15}
     assert all(v["seconds"] > 0 for v in stages.values())
     assert {k: r["steps"] for k, r in out["stages"].items()
             if r["kind"] == "train"} == {
@@ -664,7 +664,12 @@ def test_chain_phase_counts_every_stage_on_the_cpu(tmp_path, monkeypatch,
             save_every=1, eval_every=1)}
     assert full == {"curriculum_1": 210, "curriculum_2": 66,
                     "curriculum_3": 66, "surgery": 0, "pinned": 114,
-                    "fit": 18, "test": 4, "test_refine": 10}
+                    "fit": 18, "test": 6, "test_refine": 15}
+    # Each test stage's state-fit reading, on its 4 test sequences.
+    for name in ("test", "test_refine"):
+        state = out["stages"][name]["test_state"]
+        assert len(state["accepted"]) == 4
+        assert 0 <= state["accepted_share"] <= 1
     # A miscount fails the phase (the runner's result read again).
     monkeypatch.setattr(rr, "run_chain", lambda *a, **k: out)
     monkeypatch.setattr(chip_smoke, "tool_launches",
@@ -676,10 +681,20 @@ def test_chain_phase_counts_every_stage_on_the_cpu(tmp_path, monkeypatch,
     monkeypatch.setattr(chip_smoke, "tool_launches", tool_launches)
     monkeypatch.setattr(chip_smoke, "tool_launches",
                         lambda n, f=1: tool_launches(1, f))
+    first_lr = out["stages"]["pinned"]["first_lr"]
     out["stages"]["pinned"]["first_lr"] = (2e-4, 0, 0)
     with pytest.raises(AssertionError, match="pinned did not start at"):
         chip_smoke.chain(batch_size=8, data_dir=str(tmp_path),
                          device="cpu")
+    # And a test stage whose state-fit reading is missing or out of range.
+    out["stages"]["pinned"]["first_lr"] = first_lr
+    state = out["stages"]["test_refine"]["test_state"]
+    for bad in (None, dict(state, accepted_share=1.5),
+                dict(state, head_speed_p95=float("nan"))):
+        out["stages"]["test_refine"]["test_state"] = bad
+        with pytest.raises(AssertionError, match="test_refine's state-fit"):
+            chip_smoke.chain(batch_size=8, data_dir=str(tmp_path),
+                             device="cpu")
 
 
 def test_slot_separation():
