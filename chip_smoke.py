@@ -148,8 +148,9 @@ Phases, each printing its elapsed seconds:
                 --set_background=median`` on the tasks phase's 3bp_color
                 checkpoint and a 1-epoch resume with --bg_lr_mult=0 (the
                 background stays the installed median), and ``seed_sweep``
-                over DEAD_SEED and DISCOVERY_SEED for 1 epoch (the first's
-                slots still at one position, the second's parted). Each
+                over DEAD_SEED and DISCOVERY_SEED for 1 epoch, cuDNN
+                deterministic (the first's slots still at one position,
+                the second's parted). Each
                 stage prints its wall
                 seconds and its decoder launches, which must equal the
                 decodes it made;
@@ -176,7 +177,15 @@ Phases, each printing its elapsed seconds:
                 each test stage prints the state fit's reading of its
                 start (``reference_runs.test_state``: the accepted
                 share, the head's and the fitted speeds, A), which must
-                be finite with its share in [0, 1];
+                be finite with its share in [0, 1]. Then the pinned
+                stage's step from the tracked ``curriculum_3``
+                (``pinned_card_vs_cpu``): the chain's surgery on it, two
+                pinned-flag steps on the card (the capture's warm-up,
+                then one graphed step) and the same two eager steps on
+                the CPU, on the same batches; the parameters' largest
+                difference, relative to the largest parameter, must be
+                within PINNED_STEP_RTOL and each step's losses within
+                PINNED_LOSS_RTOL;
     Before the kernels line, one line with every phase's wall seconds.
 18. kernels   - one JSON line with every kernel's launches, error, times,
                 share of its bound and store-only floor, at the main
@@ -421,6 +430,18 @@ CHAIN = "3bp_chain_pinned_gated"
 # The training stages that must start at --base_lr: those whose restore
 # brings no optimizer state, so the optimizer's count starts at 0.
 CHAIN_FRESH_COUNT = ("curriculum_1", "pinned")
+# The pinned stage's two steps from the tracked curriculum_3
+# (``pinned_card_vs_cpu``) on the card against the CPU. The parameters'
+# largest difference relative to the largest parameter: a fresh RMSprop
+# moves a parameter by about 10 x lr a step whatever its gradient's size,
+# so a gradient near 0 whose sign the order of a sum sets moves it 0.02
+# one way or the other; on the CPU, float32 against float64 gave 6.2e-5
+# of the largest parameter (322.67) after these two steps, one such
+# parameter. Each step's losses, relative: float32 against float64
+# 3.2e-7 on the CPU.
+PINNED_STEP_RTOL = 2.5e-4
+PINNED_LOSS_RTOL = 1e-5
+PINNED_STEPS = 2
 # Each phase's wall seconds, in order (``phase``).
 PHASE_SECONDS = {}
 
@@ -2656,12 +2677,18 @@ def pipeline(bp_dir, batch_size=100):
     del trainer, test_trainer
 
     # 6. seed_sweep over DEAD_SEED and DISCOVERY_SEED, 1 epoch; its
-    # trainers log to their log.txt at INFO, as the CLI's do.
+    # trainers log to their log.txt at INFO, as the CLI's do. cuDNN
+    # deterministic: with its algorithms free, DISCOVERY_SEED's one live
+    # slot parted from the others within the epoch by 0.073508 px in one
+    # run on an H100 and not at all in another; deterministic, the
+    # parting repeats (0.115041 px on an H100).
     seeds = (DEAD_SEED, DISCOVERY_SEED)
     sweep = os.path.join(base, "sweep")
     logger = logging.getLogger("paig")
     level = logger.level
     logger.setLevel(logging.INFO)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
     try:
         with stage("seed_sweep", stages):
             results, printed = echoed(seed_sweep.main, [
@@ -2673,6 +2700,7 @@ def pipeline(bp_dir, batch_size=100):
                 "--device=cuda"])
     finally:
         logger.setLevel(level)
+        torch.backends.cudnn.deterministic = deterministic
     with open(os.path.join(sweep, "seed_sweep.json")) as f:
         saved = json.load(f)
     if sorted(saved) != sorted(map(str, seeds)) or not re.search(
@@ -2839,6 +2867,83 @@ def chain(batch_size=100, data_dir=DATA_DIR, device="cuda",
             if device == "cuda":
                 check_fused_line(os.path.join(base, name, "log.txt"))
     return result, out
+
+
+def pinned_card_vs_cpu(batch_size=100, data_dir=DATA_DIR, device="cuda",
+                       ckpt_dir=None):
+    """The chain's all-slot surgery on the tracked ``curriculum_3``
+    (``reference_runs.CURRICULUM_3``, or ``ckpt_dir``), then PINNED_STEPS
+    steps of 3bp_chain's pinned stage from its output on ``device`` (one
+    fused chunk: on the card the capture's warm-up step, then graphed
+    steps) and the same eager steps of the port on the CPU, on the same
+    index batches. Prints the parameters' largest difference relative to
+    the largest parameter beside PINNED_STEP_RTOL and the steps' losses'
+    beside PINNED_LOSS_RTOL, and fails over either. Returns {rel,
+    loss_rel, seconds, launches}."""
+    import numpy as np
+    import torch
+
+    from paig_reproduction_tpu_torch.ops.cuda import st_decoder
+    from paig_reproduction_tpu_torch.tools import reference_runs as rr
+    from paig_reproduction_tpu_torch.tools import slot_rescue
+
+    t0 = time.perf_counter()
+    base = tempfile.mkdtemp(prefix="paig_pinned_")
+    start = os.path.join(base, "surgery")
+    echoed(slot_rescue.main, [f"--ckpt_dir={ckpt_dir or rr.CURRICULUM_3}",
+                              f"--out_dir={start}", "--task=3bp_color",
+                              f"--data_dir={data_dir}", *rr.SURGERY_FLAGS])
+    argv = next(s["argv"] for s in rr.CHAINS["3bp_chain"]["stages"](
+        batch_size=batch_size) if s["name"] == "pinned")
+    card, cpu = (make_trainer(argv, data_dir, batch_size, device=where)
+                 for where in (device, "cpu"))
+    for name, t in (("card", card), ("cpu", cpu)):
+        t.initialize_graph(os.path.join(base, name), use_ckpt=True,
+                           ckpt_dir=start)
+    n = cpu.train_iterator.num_examples
+    rs = np.random.RandomState(0)
+    idxs = np.stack([rs.choice(n, batch_size, replace=False)
+                     for _ in range(PINNED_STEPS)])
+    cpu_losses = torch.stack([torch.stack(list(cpu.train_step(idx).values()))
+                              for idx in idxs])
+    before = st_decoder.LAUNCHES
+    with fused_env(None if device == "cuda" else "1"):
+        if card.fused_off_reason(batch_size) is not None:
+            raise AssertionError("the fused step is off: "
+                                 + card.fused_off_reason(batch_size))
+        feed_indices(card, idxs)
+        done, card_losses = card.train_chunk(batch_size, PINNED_STEPS)
+        release(card)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    launches = st_decoder.LAUNCHES - before
+    got = [p.detach().cpu() for p in card.model.parameters()]
+    want = [p.detach() for p in cpu.model.parameters()]
+    largest = max(float(w.abs().max()) for w in want)
+    rel = max(float((g - w).abs().max()) for g, w in zip(got, want)) \
+        / largest
+    loss_rel = float(((card_losses.cpu() - cpu_losses).abs()
+                      / cpu_losses.abs()).max())
+    seconds = time.perf_counter() - t0
+    src = os.path.relpath(ckpt_dir or rr.CURRICULUM_3, REPO)
+    print(f"pinned stage from {src} after the surgery: {done} steps on "
+          f"{device} (graphs "
+          f"{card.graph_stats()}, {launches} decoder launches) against "
+          f"{PINNED_STEPS} eager steps on the CPU: parameters' largest "
+          f"difference {rel:.3e} of the largest parameter ({largest:.4f}; "
+          f"tolerance {PINNED_STEP_RTOL}); the steps' losses "
+          f"{card_losses.cpu().tolist()} against "
+          f"{cpu_losses.tolist()}, {loss_rel:.3e} relative (tolerance "
+          f"{PINNED_LOSS_RTOL}); {seconds:.3f} s", flush=True)
+    if device == "cuda" and card.graph_stats().get(
+            ("train", batch_size), (0,))[0] != PINNED_STEPS - 1:
+        raise AssertionError("pinned: the step was not graphed")
+    if not (done == PINNED_STEPS and rel <= PINNED_STEP_RTOL
+            and loss_rel <= PINNED_LOSS_RTOL):
+        raise AssertionError("pinned: the card's steps disagree with the "
+                             "CPU's")
+    return dict(rel=rel, loss_rel=loss_rel, seconds=seconds,
+                launches=launches)
 
 
 def kernels_line(launches, max_err, timings, jvp, runs):
@@ -3033,6 +3138,11 @@ def main(argv=None):
         print(f"chain on {smi}: " + "; ".join(
             f"{k} {v['seconds']:.3f} s, {v['launches']} launches"
             for k, v in ch.items()))
+        pinned = pinned_card_vs_cpu()
+        print(f"pinned card against CPU on {smi}: parameters "
+              f"{pinned['rel']:.3e} (tolerance {PINNED_STEP_RTOL}), losses "
+              f"{pinned['loss_rel']:.3e} (tolerance {PINNED_LOSS_RTOL}), "
+              f"{pinned['seconds']:.3f} s")
 
     print("phase seconds: " + ", ".join(
         f"{k} {v:.2f}" for k, v in PHASE_SECONDS.items())

@@ -60,6 +60,19 @@ the same stages finishes:
         --stage pinned --chain_dir CHAIN_DIR --save_dir DIR \\
         [--probes control e f]
 
+With ``--curriculum_dir CDIR`` in place of ``--chain_dir`` no curriculum
+is run: each probe runs ``3bp_chain``'s surgery on the ``curriculum_3``
+checkpoint in CDIR (for example the tracked
+``data/checkpoints/3bp_curriculum_3``, ``reference_runs.CURRICULUM_3``)
+and its pinned stage. ``--seed`` then changes the pinned stage's batch
+order alone (the weights come from CDIR). Each probe's line also gives
+its valid recons every ``RECONS_EVERY`` epochs, its wall seconds and its
+kernel launches:
+
+    python -m paig_reproduction_tpu_torch.tools.curriculum_probes \\
+        --stage pinned --curriculum_dir CDIR --save_dir DIR \\
+        [--probes control] [--seed S]
+
 ``--stage test`` probes what holds the test stage of a finished
 ``3bp_chain`` (``TEST_FROM``) in ``CHAIN_DIR``: its pinned stage is reused,
 not run again (each probe copies it and the run's sidecar into
@@ -115,8 +128,12 @@ SHORT_EPOCHS = 100
 PINNED_PROBES = {"control": [], "e": list(rr.PINNED_GATE_FLAGS),
                  "f": ["--vel_anchor=1.0"]}
 MAX_PINNED_RECONS = 1.5
-# The chain whose curriculum the pinned probes start from.
+# The chain whose curriculum the pinned probes start from, and the one
+# whose surgery and pinned stage they run from a given curriculum_3.
 PINNED_FROM = "3bp_chain_recons_warmup"
+PINNED_FROM_STATE = "3bp_chain"
+# The period of a pinned probe's printed valid recons (epochs).
+RECONS_EVERY = 50
 
 
 def probe_flags(name, base_records=()) -> list:
@@ -205,14 +222,19 @@ def run_probes(save_dir, names=("base", "a", "b", "c", "d"), device="cuda",
 
 def pinned_stages(flags, curriculum=rr.CURRICULUM_EPOCHS,
                   pinned=rr.PINNED_EPOCHS, batch_size=100, save_every=50,
-                  eval_every=10) -> list:
+                  eval_every=10, start=None) -> list:
     """PINNED_FROM's stages through the pinned stage, ``flags`` added to
-    the pinned stage's."""
+    the pinned stage's; with ``start`` (a ``curriculum_3`` checkpoint's
+    directory) PINNED_FROM_STATE's surgery, reading ``start``, and its
+    pinned stage alone."""
     stages = rr.chain_stages(
         curriculum, pinned, batch_size, save_every, eval_every,
-        curriculum_flags=rr.recons_warmup_flags(curriculum),
+        curriculum_flags=() if start else rr.recons_warmup_flags(curriculum),
         pinned_flags=flags)
-    return stages[:[s["name"] for s in stages].index("pinned") + 1]
+    stages = stages[:[s["name"] for s in stages].index("pinned") + 1]
+    if start is None:
+        return stages
+    return [dict(stages[-2], start=os.path.abspath(start)), stages[-1]]
 
 
 def pinned_passed(end, valid) -> dict:
@@ -245,38 +267,53 @@ def run_pinned_probes(save_dir, chain_dir, names=("control", "e", "f"),
                       device="cuda", data_dir=None, seed=0,
                       curriculum=rr.CURRICULUM_EPOCHS,
                       pinned=rr.PINNED_EPOCHS, batch_size=100, save_every=50,
-                      eval_every=10) -> dict:
+                      eval_every=10, curriculum_dir=None) -> dict:
     """Runs PINNED_FROM's curriculum in ``chain_dir`` (where not finished),
     then the pinned probes ``names`` in ``save_dir`` from its last
-    stage's checkpoint; returns {probe: its flags, end record, valid
-    losses at that epoch, trigger epoch, tests and whether it passed}."""
+    stage's checkpoint, or, given ``curriculum_dir``, the probes from the
+    ``curriculum_3`` checkpoint there under PINNED_FROM_STATE's flags;
+    returns {probe: its flags, end record, valid losses at that epoch,
+    valid recons every RECONS_EVERY epochs, trigger epoch, wall seconds,
+    launches, tests and whether it passed}."""
     kw = dict(curriculum=curriculum, pinned=pinned, batch_size=batch_size,
               save_every=save_every, eval_every=eval_every)
-    curriculum = pinned_stages([], **kw)[:-2]
-    rr.run_chain(PINNED_FROM, chain_dir, device, data_dir, seed,
-                 stages=curriculum)
+    chain = PINNED_FROM_STATE if curriculum_dir else PINNED_FROM
+    if not curriculum_dir:
+        curriculum = pinned_stages([], **kw)[:-2]
+        rr.run_chain(chain, chain_dir, device, data_dir, seed,
+                     stages=curriculum)
     out = {}
     for name in [n for n in PINNED_PROBES if n in names]:
         flags = PINNED_PROBES[name]
         d = os.path.join(save_dir, name)
-        _copy_run(chain_dir, d, curriculum)
-        rr.run_chain(PINNED_FROM, d, device, data_dir, seed,
-                     stages=pinned_stages(flags, **kw))
+        if not curriculum_dir:
+            _copy_run(chain_dir, d, curriculum)
+        rr.run_chain(chain, d, device, data_dir, seed,
+                     stages=pinned_stages(flags, start=curriculum_dir, **kw))
         stage_dir = os.path.join(d, "pinned")
         end = rr._velocity_records(stage_dir)[-1]
         parsed = rr.parse_log(os.path.join(stage_dir, "log.txt"))
         valid = parsed["valid"].get(end["epoch"])
         tests = pinned_passed(end, valid)
+        segments = rr._read_sidecar(d)["stages"]["pinned"]
+        every = {e: v["recons"] for e, v in sorted(parsed["valid"].items())
+                 if e % RECONS_EVERY == 0}
         out[name] = dict(flags=flags, end=end, valid=valid,
-                         trigger=parsed["trigger"],
+                         recons_every=every, trigger=parsed["trigger"],
                          first_lr=(parsed["first_lr"] or [None])[0],
+                         wall_s=sum(s["wall_s"] for s in segments),
+                         launches=sum(s["launches"] for s in segments),
                          tests=tests, passed=all(tests.values()))
         recons = "none" if valid is None else "%.4f" % valid["recons"]
         trigger = ("never" if parsed["trigger"] is None
                    else "at epoch %d" % parsed["trigger"])
         print(f"curriculum_probes: pinned {name} "
-              f"({' '.join(flags) or 'no flag'} on the chain's): valid "
-              f"recons {recons}, trigger {trigger}; "
+              f"({' '.join(flags) or 'no flag'} on {chain}'s, seed "
+              f"{seed}): valid recons {recons}, trigger {trigger}; every "
+              f"{RECONS_EVERY} epochs "
+              + ", ".join(f"{e}: {v:.4f}" for e, v in every.items())
+              + f"; {out[name]['wall_s']:.1f} s, "
+              f"{out[name]['launches']} launches; "
               f"{rr.velocity_line(end)}; "
               + ", ".join(f"{k} {v}" for k, v in tests.items())
               + f": {'passed' if out[name]['passed'] else 'failed'}",
@@ -288,9 +325,9 @@ def run_pinned_probes(save_dir, chain_dir, names=("control", "e", "f"),
     result = dict(probes=out, first_passing=first)
     with open(os.path.join(save_dir, "pinned_probes.json"), "w") as f:
         json.dump(result, f, indent=1)
-    print(json.dumps({k: {kk: v[kk] for kk in ("flags", "valid", "trigger",
-                                               "tests", "passed")}
-                      for k, v in out.items()}), flush=True)
+    print(json.dumps({k: {kk: v[kk] for kk in (
+        "flags", "valid", "recons_every", "trigger", "wall_s", "launches",
+        "tests", "passed")} for k, v in out.items()}), flush=True)
     return result
 
 
@@ -420,6 +457,10 @@ def main(argv=None):
                    help="--stage pinned: the save_dir of the curriculum "
                         "the probes start from; --stage test: a finished "
                         "3bp_chain's save_dir")
+    p.add_argument("--curriculum_dir", default="",
+                   help="--stage pinned: a curriculum_3 checkpoint's "
+                        "directory to run 3bp_chain's surgery and pinned "
+                        "stage from, in place of --chain_dir's curriculum")
     p.add_argument("--probes", nargs="+", default=None,
                    help="default: base a b c d; control e f with --stage "
                         "pinned; control g h i with --stage test")
@@ -428,7 +469,10 @@ def main(argv=None):
     p.add_argument("--seed", type=int, default=0)
     args = p.parse_args(argv)
     os.makedirs(args.save_dir, exist_ok=True)
-    if args.stage != "curriculum" and not args.chain_dir:
+    if args.curriculum_dir and args.stage != "pinned":
+        p.error("--curriculum_dir is for --stage pinned")
+    if (args.stage != "curriculum" and not args.chain_dir
+            and not args.curriculum_dir):
         p.error(f"--stage {args.stage} needs --chain_dir")
     if args.stage == "test":
         return run_test_probes(args.save_dir, args.chain_dir,
@@ -438,7 +482,8 @@ def main(argv=None):
         return run_pinned_probes(args.save_dir, args.chain_dir,
                                  args.probes or list(PINNED_PROBES),
                                  args.device, args.data_dir or None,
-                                 args.seed)
+                                 args.seed,
+                                 curriculum_dir=args.curriculum_dir or None)
     return run_probes(args.save_dir, args.probes or ["base", "a", "b", "c",
                                                      "d"],
                       args.device, args.data_dir or None, args.seed)

@@ -162,6 +162,16 @@ RUNS = {
 # package's does: each stage trains at base_lr until 75% of the chain's
 # epochs through it.
 TRUNK = os.path.join(REPO, "data", "checkpoints", "ph7_spring")
+# CURRICULUM_3 is a curriculum_3 checkpoint of 3bp_chain, the start of the
+# pinned stage's studies (tests/chain_pinned_study.py, curriculum_probes
+# --stage pinned --curriculum_dir): its model and step (55500), no
+# optimizer state (the surgery starts a fresh one). From `reference_runs
+# --run 3bp_chain` at seed 0 on the code of commit 18b51d8, on an NVIDIA
+# H100 80GB HBM3 at 700.00 W: valid recons 6.9259 at its end; the
+# all-slot surgery on it finds template masses 167, 161, 154 px and
+# content salience 0.024, 0.026, 0.052 (so --rescue_slot=auto picks all
+# three); that chain's pinned stage ended at valid recons 5.3608.
+CURRICULUM_3 = os.path.join(REPO, "data", "checkpoints", "3bp_curriculum_3")
 # The 3bp recipe (SURVEY.md:278, the reference README:67) with the test
 # log's --learn_frame_offset.
 _3BP_RECIPE = ["--task=3bp_color", "--base_lr=1e-3", "--autoencoder_loss=5.0",

@@ -50,6 +50,7 @@ import pytest
 import torch
 
 import jax_3bp
+from chain_pinned import train_losses as _jax_losses
 from paig_reproduction_tpu.train import optimizers as jax_opt
 from paig_reproduction_tpu.train.checkpoint import (
     restore_checkpoint as jax_restore,
@@ -87,17 +88,6 @@ STEPS_PER_EPOCH = 20
 def _stage_argv(batch_size=8):
     """The chain's curriculum_1 flags (B=8 for the tiny split)."""
     return rr.CHAINS[CHAIN]["stages"](batch_size=batch_size)[0]["argv"]
-
-
-def _jax_losses(model, x, out, aux, aux_scale=1.0):
-    """The JAX trainer's train loss (``train/trainer.py``'s
-    ``make_loss_fn``)."""
-    from paig_reproduction_tpu.models.physics_net import compute_losses
-    return compute_losses(
-        model, x, out, aux["recons_out"], aux.get("center_penalty"),
-        aux.get("vel_anchor_penalty"), aux.get("coarse_pred_loss"),
-        aux.get("pos_consistency_loss"), aux.get("attn_overlap_penalty"),
-        aux_scale=aux_scale)
 
 
 def _norm(tree):
