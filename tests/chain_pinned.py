@@ -97,29 +97,35 @@ def train_losses(model, x, out, aux, aux_scale=1.0):
         aux_scale=aux_scale)
 
 
-def jax_step_fn(model, params):
+def jax_step_fn(model, params, lr_dtype=None):
     """(optax transform, jitted step) of the JAX package's pinned stage:
     RMSprop over its 1000-epoch schedule with the background frozen
-    (``bg_lr_mult=0``), the aux losses on. The step returns (params,
-    optimizer state, train loss)."""
+    (``bg_lr_mult=0``), the aux losses on; the schedule's rate cast to
+    ``lr_dtype`` where one is given (float32 for a float64 run, as the
+    port's rate is). The step returns (params, optimizer state, train
+    loss, eval losses)."""
     args = cli.build_parser().parse_args(pinned_argv())
     assert args.bg_lr_mult == 0.0 and args.aux_warmup_epochs == 0
-    tx = jax_opt.build_optimizer(
-        args.optimizer, jax_opt.lr_schedule(
-            args.base_lr, args.epochs, STEPS_PER_EPOCH, args.anneal_lr),
-        params, bg_lr_mult=args.bg_lr_mult)
+    schedule = jax_opt.lr_schedule(args.base_lr, args.epochs,
+                                   STEPS_PER_EPOCH, args.anneal_lr)
+    if lr_dtype is not None:
+        rate = schedule
+
+        def schedule(count):
+            return rate(count).astype(lr_dtype)
+    tx = jax_opt.build_optimizer(args.optimizer, schedule, params,
+                                 bg_lr_mult=args.bg_lr_mult)
 
     @jax.jit
     def step(p, opt_state, batch):
         def loss_fn(q):
             out, aux = model.apply({"params": q}, batch)
             return train_losses(model, batch, out, aux)
-        (loss, _), grads = jax.value_and_grad(loss_fn, has_aux=True)(p)
+        (loss, ev), grads = jax.value_and_grad(loss_fn, has_aux=True)(p)
         updates, opt_state = tx.update(grads, opt_state, p)
-        return optax.apply_updates(p, updates), opt_state, loss
+        return optax.apply_updates(p, updates), opt_state, loss, ev
 
     return tx, step
-
 
 
 def nudged_steps(start, data_path, port_nudges, jax_nudges, steps,
@@ -155,7 +161,7 @@ def nudged_steps(start, data_path, port_nudges, jax_nudges, steps,
     for _ in range(steps):
         idx = rs.choice(len(x), batch, replace=False)
         for run in runs:
-            run[0], run[1], _ = step(run[0], run[1], x[idx])
+            run[0], run[1], _, _ = step(run[0], run[1], x[idx])
         for trainer in ports:
             trainer.train_step(idx)
         jax_states = [{k: v.numpy() for k, v in flax_to_state_dict(

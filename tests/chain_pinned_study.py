@@ -17,19 +17,22 @@ runs:
 * ``port``: the port's Trainer (``train_step``, ``_losses``);
 * ``jax``: the JAX package's jitted step and eval;
 * ``jax_up``, ``jax_down``: the same from the start's params multiplied
-  by 1 + 1e-7 and 1 - 1e-7: the JAX package's own spread.
+  by 1 + 1e-7 and 1 - 1e-7: the JAX package's own spread;
+* ``jax_up2``, ``jax_down2``, ``jax_up3``, ``jax_down3``: the same from
+  the start times 1 +- 2e-7 and 1 +- 3e-7, widening that spread.
 
 Each run is one process (``--run NAME``) and writes ``NAME.json`` into
-``--out``; ``--report`` prints, at each epoch mark every run reached, the
-four valid recons, the JAX runs' range, whether the port lies inside it
-and by how much it lies outside; the same test with each run against
-the other three; then each run's last state's template masses and
-content salience (its own package's ``train/surgery.py``) and all four
-last states scored by one evaluator, the port's:
+``--out``; ``--report`` prints, at each epoch mark that the port and
+``jax`` reached, every run's valid recons, the range of the JAX runs that
+reached it, whether the port lies inside it and by how much it lies
+outside; the same test with each run against the others; then each
+run's last state's template masses and content salience (its own
+package's ``train/surgery.py``) and every last state scored by one
+evaluator, the port's:
 
     taskset -c 0,1 python tests/chain_pinned_study.py --run port \\
         --epochs 30 --eval_every 5 --threads 2 --out DIR
-    (the same for jax, jax_up, jax_down on other cores; one process each)
+    (the same for each JAX run on other cores; one process each)
     python tests/chain_pinned_study.py --report --out DIR
 
 A run resumes from its ``port.pt`` / ``NAME.pkl`` state when asked for
@@ -68,7 +71,9 @@ import chain_pinned as cpn  # noqa: E402
 from spring_pair import nudged  # noqa: E402
 
 BATCH, VALID_N = 100, 200
-RUN_NUDGES = {"port": None, "jax": 0.0, "jax_up": 1e-7, "jax_down": -1e-7}
+RUN_NUDGES = {"port": None, "jax": 0.0, "jax_up": 1e-7, "jax_down": -1e-7,
+              "jax_up2": 2e-7, "jax_down2": -2e-7, "jax_up3": 3e-7,
+              "jax_down3": -3e-7}
 
 
 def epoch_batches(epoch, n):
@@ -146,7 +151,7 @@ def run(name, epochs, eval_every, out_dir):
         recons_jit = jax.jit(recons)
 
         def step(idx):
-            box[0], box[1], loss = jax_step(box[0], box[1], x[idx])
+            box[0], box[1], loss, _ = jax_step(box[0], box[1], x[idx])
             return float(loss)
 
         def score():
@@ -228,7 +233,7 @@ def slot_states(out_dir, names):
 
 def last_states(out_dir, names):
     """Every run's last saved state scored by the port's eval, so that all
-    four are read by one evaluator: {run: (epoch, valid recons)}, the
+    are read by one evaluator: {run: (epoch, valid recons)}, the
     start's own under ``start``."""
     start, trainer = _start(out_dir)
     valid = trainer.valid_iterator.raw_uint8[:VALID_N].astype(
@@ -243,41 +248,43 @@ def last_states(out_dir, names):
 
 
 def report(out_dir):
-    """The table of valid recons at the marks every run reached, each by
-    its own package's eval: the JAX runs' range, its width, whether the
-    port lies within it and how far outside; then the slot states and
-    every run's last state by the port's eval."""
+    """The table of valid recons at the marks the port and ``jax`` reached,
+    each by its own package's eval: the range of the JAX runs that reached
+    the mark, its width, whether the port lies within it and how far
+    outside; then the slot states and every run's last state by the
+    port's eval."""
     runs = {}
     for name in RUN_NUDGES:
         path = os.path.join(out_dir, name + ".json")
         if os.path.exists(path):
             with open(path) as f:
                 runs[name] = json.load(f)
-    marks = sorted(set.intersection(*(set(r["epochs"])
-                                      for r in runs.values())))
-    jax_names = [n for n in runs if n != "port"]
-    print("epoch | " + " | ".join(runs) + " | JAX range (width) | port "
-          "inside | port outside by")
+    marks = sorted(set(runs["port"]["epochs"]) & set(runs["jax"]["epochs"]))
+    print("epoch | " + " | ".join(runs) + " | JAX runs | JAX range (width) "
+          "| port inside | port outside by")
     rows = []
     for e in marks:
         vals = {n: r["valid_recons"][r["epochs"].index(e)]
-                for n, r in runs.items()}
-        lo = min(vals[n] for n in jax_names)
-        hi = max(vals[n] for n in jax_names)
+                for n, r in runs.items() if e in r["epochs"]}
+        jax_vals = [v for n, v in vals.items() if n != "port"]
+        lo, hi = min(jax_vals), max(jax_vals)
         outside = max(lo - vals["port"], vals["port"] - hi, 0.0)
-        rows.append(dict(epoch=e, recons=vals, jax_range=(lo, hi),
-                         width=hi - lo, inside=outside == 0.0,
-                         outside_by=outside))
-        print(f"{e} | " + " | ".join(f"{vals[n]:.4f}" for n in runs)
-              + f" | {lo:.4f}-{hi:.4f} ({hi - lo:.4f}) | {outside == 0.0}"
-              f" | {outside:.4f}")
-    # The same test with each run in the port's place: a fourth run
-    # exchangeable with three lies outside their range at half the marks
+        rows.append(dict(epoch=e, recons=vals, jax_runs=len(jax_vals),
+                         jax_range=(lo, hi), width=hi - lo,
+                         inside=outside == 0.0, outside_by=outside))
+        print(f"{e} | " + " | ".join(f"{vals[n]:.4f}" if n in vals else "-"
+                                     for n in runs)
+              + f" | {len(jax_vals)} | {lo:.4f}-{hi:.4f} ({hi - lo:.4f}) | "
+              f"{outside == 0.0} | {outside:.4f}")
+    # The same test with each run in the port's place: a run exchangeable
+    # with k others lies outside their range with probability 2 / (k + 1)
     # (whatever their distribution).
     odd = {}
     for name in runs:
         odd[name] = {"outside": [], "outside_by_more_than_width": []}
         for row in rows:
+            if name not in row["recons"]:
+                continue
             others = [v for n, v in row["recons"].items() if n != name]
             lo, hi = min(others), max(others)
             by = max(lo - row["recons"][name], row["recons"][name] - hi, 0)
@@ -285,7 +292,7 @@ def report(out_dir):
                 odd[name]["outside"].append(row["epoch"])
             if by > hi - lo:
                 odd[name]["outside_by_more_than_width"].append(row["epoch"])
-        print(f"{name} against the other three: outside their range at "
+        print(f"{name} against the others: outside their range at "
               f"epochs {odd[name]['outside']}, by more than its width at "
               f"{odd[name]['outside_by_more_than_width']}")
     slots = slot_states(out_dir, list(runs))

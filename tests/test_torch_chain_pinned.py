@@ -283,15 +283,53 @@ def test_pinned_probe_runs_from_a_curriculum_dir(tmp_path, monkeypatch):
 def test_smoke_pinned_check_runs_on_the_cpu(tmp_path, monkeypatch):
     """``chip_smoke.pinned_card_vs_cpu`` on the CPU (B=4 on a tiny split):
     the surgery, then the fused chunk (the step body called directly)
-    against the eager steps, bitwise equal; a difference over
-    PINNED_STEP_RTOL fails it."""
+    against the eager steps, bitwise equal, no decoder launch; a planted
+    fault on the first trainer's side, a negated or a skipped gradient,
+    fails it on the updates alone (the losses' check off), and a launch
+    count other than the expected one fails it too."""
     import chip_smoke
     from test_torch_chain import _tiny_3bp
     _tiny_3bp(tmp_path / "d")
     out = chip_smoke.pinned_card_vs_cpu(4, str(tmp_path / "d"), "cpu")
     assert out["rel"] == out["loss_rel"] == 0.0 and out["launches"] == 0
-    monkeypatch.setattr(chip_smoke, "PINNED_STEP_RTOL", -1.0)
-    with pytest.raises(AssertionError, match="disagree"):
+
+    make, tolerance = chip_smoke.make_trainer, chip_smoke.PINNED_UPDATE_RTOL
+    monkeypatch.setattr(chip_smoke, "PINNED_LOSS_RTOL", float("inf"))
+    for fault in (torch.neg, torch.zeros_like):
+        made = []
+
+        def faulty(*a, **kw):
+            trainer = make(*a, **kw)
+            if len(made) % 2 == 0:   # each call's first: the card's
+                for p in trainer.model.parameters():
+                    p.register_hook(fault)
+            made.append(trainer)
+            return trainer
+
+        monkeypatch.setattr(chip_smoke, "make_trainer", faulty)
+        with pytest.raises(AssertionError, match="disagree"):
+            chip_smoke.pinned_card_vs_cpu(4, str(tmp_path / "d"), "cpu")
+        monkeypatch.setattr(chip_smoke, "PINNED_UPDATE_RTOL", float("inf"))
+        # A skipped gradient leaves the parameters at the start: 1; a
+        # negated one moves them the other way: about 2.
+        got = chip_smoke.pinned_card_vs_cpu(4, str(tmp_path / "d"), "cpu")
+        print(f"{fault.__name__}: the updates' difference {got['rel']:.4f}")
+        assert got["rel"] >= 1.0 > tolerance, fault
+        monkeypatch.setattr(chip_smoke, "PINNED_UPDATE_RTOL", tolerance)
+
+    monkeypatch.setattr(chip_smoke, "make_trainer", make)
+    from paig_reproduction_tpu_torch.ops.cuda import st_decoder
+    monkeypatch.setattr(st_decoder, "LAUNCHES", 0)
+    fused_env = chip_smoke.fused_env
+
+    @contextlib.contextmanager
+    def one_launch(value):
+        with fused_env(value):
+            yield
+        st_decoder.LAUNCHES += 1
+
+    monkeypatch.setattr(chip_smoke, "fused_env", one_launch)
+    with pytest.raises(AssertionError, match="1 decoder launches"):
         chip_smoke.pinned_card_vs_cpu(4, str(tmp_path / "d"), "cpu")
 
 
@@ -301,9 +339,6 @@ def test_pinned_steps_match_jax_in_float64(surgeries, tmp_path):
     (5.9e-14 of the largest, CPU): the two packages run one function,
     which float32 rounding alone parts and the descent then amplifies."""
     import jax.numpy as jnp
-    import optax
-
-    from paig_reproduction_tpu.train import optimizers as jax_opt
     start = str(surgeries[0] / "port")
     path = tmp_path / "3bp.npz"
     with np.load(cpn.SL20) as f:
@@ -313,27 +348,13 @@ def test_pinned_steps_match_jax_in_float64(surgeries, tmp_path):
     trainer.model.double()
     x = trainer.train_iterator.X.astype(np.float64)
     model = cpn.jax_model()
-    args = cli.build_parser().parse_args(cpn.pinned_argv())
-    schedule = jax_opt.lr_schedule(args.base_lr, args.epochs,
-                                   cpn.STEPS_PER_EPOCH, args.anneal_lr)
     params = cpn.jax_params(start, model)
     with jax.enable_x64(True):
         params = jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), params)
         start_state = {k: v.clone() for k, v in
                        trainer.model.state_dict().items()}
-        tx = jax_opt.build_optimizer(
-            args.optimizer, lambda count: schedule(count).astype(
-                jnp.float32), params, bg_lr_mult=args.bg_lr_mult)
+        tx, step = cpn.jax_step_fn(model, params, jnp.float32)
         opt_state = tx.init(params)
-
-        @jax.jit
-        def step(p, o, batch):
-            def loss(q):
-                out, aux = model.apply({"params": q}, batch)
-                return cpn.train_losses(model, batch, out, aux)
-            (total, ev), g = jax.value_and_grad(loss, has_aux=True)(p)
-            updates, o = tx.update(g, o, p)
-            return optax.apply_updates(p, updates), o, total, ev
 
         rs = np.random.RandomState(0)
         for _ in range(3):

@@ -770,6 +770,27 @@ def test_pipeline_flags_are_the_cli_flags():
     assert chip_smoke.PIPELINE_EPOCHS == 50
 
 
+@pytest.mark.parametrize("seed", [chip_smoke.DEAD_SEED,
+                                  chip_smoke.DISCOVERY_SEED])
+def test_unet_moved_reads_the_unet_gradient(seed, one_thread):
+    """What the seed-sweep stage holds: ``unet_moved`` reads 0 on a model
+    at its seed's initial weights, and after two train steps (B=4, the
+    train file's first sequences) still 0 at DEAD_SEED, whose UNet gets
+    no gradient, and more than 0 at DISCOVERY_SEED, whose live slot
+    passes one."""
+    import numpy as np
+
+    argv = [a for a in chip_smoke.TRAIN_ARGS if a != "--device=cuda"] + [
+        f"--seed={seed}"]
+    trainer = chip_smoke.make_trainer(argv, chip_smoke.DATA_DIR, 4, "cpu")
+    assert chip_smoke.unet_moved(trainer.model, seed) == 0
+    for idx in (np.arange(4), np.arange(4, 8)):
+        trainer.train_step(idx)
+    moved = chip_smoke.unet_moved(trainer.model, seed)
+    assert (moved == 0) == (seed == chip_smoke.DEAD_SEED), moved
+    assert chip_smoke.unet_moved(trainer.model, 1) > 0
+
+
 @pytest.mark.parametrize("seed", [chip_smoke.DISCOVERY_SEED, 1,
                                   chip_smoke.DEAD_SEED])
 def test_discovery_seed_has_live_slots(seed):
